@@ -7,7 +7,9 @@ setup(
         "TPU-native Gaussian-splat processing and differentiable-rendering "
         "framework (JAX/XLA/Pallas), with the capabilities of 3dgsconverter"
     ),
-    packages=find_packages(include=["gsconverter_tpu", "gsconverter_tpu.*"]),
+    packages=find_packages(include=["gsconverter_tpu", "gsconverter_tpu.*",
+                                    "gsconverter_tpu_torch", "gsconverter_tpu_torch.*"]),
+    package_data={"gsconverter_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
