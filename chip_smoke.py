@@ -4,7 +4,8 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit; TF32 off;
-  2. build: kernel K1 (csrc/sor_window.cu) with nvcc, timed;
+  2. build: csrc/sor_window.cu (K1) and csrc/kmeans.cu (K2-K4), one nvcc
+     each, with ptxas's registers, shared memory, spills;
   3. K1 against its plain PyTorch version at two settings on the card
      (4,194,304 points at k=25, sigma=10.5: one pass, window 256, 7 steps;
      1,048,576 points at k=25, sigma=2.0: two passes, window 512, 10 steps):
@@ -16,7 +17,19 @@ Phases (any failure ends the run with a non-zero exit):
      scene with isolated flyers inside the bbox through bbox, min_opacity=5
      and sor_intensity=4 on "cuda" and on "cpu": SOR must drop rows on both
      and the outputs must agree;
-  5. K1 against its plain version on the input the main path gave it.
+  5. K1 against its plain version on the input the main path gave it;
+  6. K2 (the fused Lloyd step) against its plain version at the SOG
+     palette's shapes for 3M splats (64 chunks of 65,536 rows, D=24, the
+     trailing chunks padding only) at k=1024 and k=64, bf16 and f32;
+     K3 (assign) and K4 (update) at N=1,048,576, D=24, K=4096; each with
+     its agreement, repeat-identity, times and bound;
+  7. the SOG path at full width: a 3M-splat, SH-degree-2 scene through
+     Converter.run to .sog at compression levels 1 and 10 on the card, with
+     K2's launches, the writer's stage times, the palette fit's own time,
+     and the decoded file checked, its shN error within 1.02x of the same
+     fit through K2's plain version; then a 20k-splat scene to .sog on "cuda"
+     and on "cpu": all but the palette entries byte-identical, the palette's
+     reconstruction error within 1.25x of the CPU's.
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -24,12 +37,16 @@ then the card's name and power limit from nvidia-smi; the last line is
 and exits 1.  Everything it writes goes under build/chip_smoke/.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -40,6 +57,8 @@ import torch
 # half that; HBM3 bandwidth.
 FP32_INSTR_RATE = 33.5e12
 PEAK_BYTES = 3.35e12
+# a multiply-add counted as two operations, as the peaks count it
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # FP32 instructions K1's function needs per (point, candidate) pair, each
 # distance computed once: the distance (3 sub, 3 mul, 2 add, sqrt counted
 # as one, 2 validity compares, the bf16 round trip: 12), the all-candidate
@@ -57,6 +76,12 @@ INNER_FLYERS = 10
 # (points, k, sigma) of phase 3, and the main path's scene size
 K1_SETTINGS = ((4_194_304, 25, 10.5), (1_048_576, 25, 2.0))
 MAIN_N = 1_000_000
+# the SOG palette at 3M splats: 64 chunks of 65,536 rows of 24 shN values;
+# k per chunk 1024 at level 1, 64 at level 10
+SOG_N, SOG_D, SOG_LEVELS, SOG_CHUNKS = 3_000_000, 24, (1, 10), 64
+K2_KS = (1024, 64)
+K34_N, K34_D, K34_K = 1_048_576, 24, 4096
+SMALL_SOG_N = 20_000
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "chip_smoke")
@@ -102,6 +127,31 @@ def k1_bound_ms(n, window, iters):
     ops = n * cw * per_pair + n * 512 * K1_MID_OPS
     nbytes = n * 16
     t_ops, t_bytes = ops / FP32_INSTR_RATE, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k2_bound_ms(rows, k, d, precision):
+    """Least time for K2's function: the distance products (2 rows k d
+    operations) at the peak for ``precision``, or its bytes (x read once,
+    the centroids, the labels, sums and counts written), whichever is
+    larger; the segment sums add rows*d, which is noise beside them."""
+    ops = 2.0 * rows * k * d
+    nbytes = rows * d * 4 + rows * 4 + 2 * k * d * 4 + k * 4
+    t_ops, t_bytes = ops / PEAK_FLOPS[precision], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k3_bound_ms(n, k, d):
+    """K3: the f32 distance products or x, the centroids and the labels."""
+    t_ops = 2.0 * n * k * d / PEAK_FLOPS["f32"]
+    t_bytes = (n * d * 4 + k * d * 4 + n * 4) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k4_bound_ms(n, k, d):
+    """K4: x and the labels read, sums and counts written (n*d adds)."""
+    t_ops = n * d / FP32_INSTR_RATE
+    t_bytes = (n * d * 4 + n * 4 + k * d * 4 + k * 4) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -343,6 +393,289 @@ def phase_small_agreement(sor):
     return same
 
 
+def sog_rows(n, d, seed):
+    """n rows of d SH values N(0, 0.1), u8-quantized and dequantized as the
+    SOG writer hands them to K2 (on the card)."""
+    from gsconverter_tpu_torch.formats import sog
+
+    rest = np.random.default_rng(seed).normal(0, 0.1, (n, d)).astype(np.float32)
+    q8, scale, mn = sog.shn_u8(rest, n, d)
+    return sog._dequant_u8(torch.from_numpy(q8).to(DEVICE), scale, mn)
+
+
+def chunked_inputs(km, x, chunks, k):
+    """The chunk layout, n_valid and k-means++ init of kmeans_chunked."""
+    from gsconverter_tpu_torch.ops.padding import PAD_POS, next_pow2, pad_rows
+
+    n, d = x.shape
+    chunk = next_pow2(-(-n // chunks), floor=max(256, k))
+    xc = pad_rows(x, chunk * chunks, PAD_POS).reshape(chunks, chunk, d).contiguous()
+    nv = torch.clamp(n - torch.arange(chunks, device=x.device) * chunk, 0, chunk)
+    nv = nv.to(torch.int32)
+    valid = torch.arange(chunk, device=x.device)[None, :] < nv[:, None]
+    return xc, km.init_centroids(xc, k, 100, valid=valid), nv
+
+
+def compare_k2(km, xc, c, nv, precision):
+    """K2 against its plain version on one batched input."""
+    s1, n1, l1 = km._lloyd_kernel(xc, c, nv, precision)
+    torch.cuda.synchronize()
+    s2, n2, l2 = km._lloyd_ref(xc, c, nv, precision)
+    torch.cuda.synchronize()
+    chunks, rows, d = xc.shape
+    k = c.shape[1]
+    real = torch.arange(rows, device=xc.device)[None, :] < nv[:, None]
+    mism = (l1 != l2) & real
+    agree = 1.0 - float(mism.sum()) / float(real.sum())
+    # clusters whose membership agrees: no disagreeing row on either side
+    offs = (torch.arange(chunks, device=xc.device) * k)[:, None]
+    bad = torch.zeros(chunks * k, dtype=torch.bool, device=xc.device)
+    bad[(l1.long() + offs)[mism]] = True
+    bad[(l2.long() + offs)[mism]] = True
+    same = ~bad.view(chunks, k)
+    counts_equal = bool(torch.equal(n1[same], n2[same]))
+    err = (s1 - s2)[same].abs()
+    sums_close = bool(torch.isclose(s1, s2, rtol=1e-5, atol=1e-4)[same].all())
+    s3, n3, l3 = km._lloyd_kernel(xc, c, nv, precision)
+    repeat = bool(torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3))
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    xb, ct = xc.to(dt), c.transpose(1, 2).to(dt)
+    out = dict(precision=precision, chunks=chunks, rows=rows, d=d, k=k,
+               label_agree=agree, counts_equal=counts_equal, sums_close=sums_close,
+               max_abs_err=float(err.max()), repeat_identical=repeat,
+               kernel_ms=cuda_ms(lambda: km._lloyd_kernel(xc, c, nv, precision), reps=5),
+               plain_ms=cuda_ms(lambda: km._lloyd_ref(xc, c, nv, precision), reps=1,
+                                warmup=0),
+               matmul_ms=cuda_ms(lambda: torch.bmm(xb, ct), reps=3))
+    del xb, ct
+    out["bound_ms"], out["bound_by"] = k2_bound_ms(chunks * rows, k, d, precision)
+    bar = 0.9999 if precision == "f32" else 0.999
+    if agree < bar or not counts_equal or not sums_close or not repeat:
+        fail(f"K2 disagrees with its plain version: {json.dumps(out)}")
+    return out
+
+
+def phase_k2(km):
+    """K2 at the SOG palette's shapes for SOG_N splats."""
+    x = sog_rows(SOG_N, SOG_D, seed=5)
+    results = []
+    for k in K2_KS:
+        xc, c, nv = chunked_inputs(km, x, SOG_CHUNKS, k)
+        for precision in ("bf16", "f32"):
+            r = compare_k2(km, xc, c, nv, precision)
+            log(f"[k2] {json.dumps(r)}")
+            results.append(r)
+        del xc, c, nv
+    return results
+
+
+def phase_k3_k4(km):
+    """K3 and K4 at K34_N points, K34_D dims, K34_K centroids."""
+    rr = np.random.default_rng(6)
+    x = torch.from_numpy(rr.normal(0, 1, (K34_N, K34_D)).astype(np.float32)).to(DEVICE)
+    c = x[torch.from_numpy(rr.choice(K34_N, K34_K, replace=False)).to(DEVICE)].contiguous()
+    l1 = km._assign_kernel(x, c)
+    torch.cuda.synchronize()
+    l2 = km._assign_ref(x, c)
+    agree = float((l1 == l2).float().mean())
+    # where labels differ, how far apart the two chosen distances are
+    dist = lambda lab: ((x - c[lab.long()]) ** 2).sum(1)  # noqa: E731
+    k3 = dict(n=K34_N, d=K34_D, k=K34_K, label_agree=agree,
+              max_abs_err=float((dist(l1) - dist(l2)).abs().max()),
+              repeat_identical=bool(torch.equal(l1, km._assign_kernel(x, c))),
+              kernel_ms=cuda_ms(lambda: km._assign_kernel(x, c), reps=5),
+              plain_ms=cuda_ms(lambda: km._assign_ref(x, c), reps=1, warmup=0),
+              matmul_ms=cuda_ms(lambda: x @ c.T, reps=3))
+    k3["bound_ms"], k3["bound_by"] = k3_bound_ms(K34_N, K34_K, K34_D)
+    log(f"[k3] {json.dumps(k3)}")
+    if agree < 0.9999 or not k3["repeat_identical"]:
+        fail(f"K3 disagrees with its plain version: {json.dumps(k3)}")
+    s1, n1 = km._update_kernel(x, l1, K34_K)
+    torch.cuda.synchronize()
+    s2, n2 = km._update_ref(x, l1, K34_K)
+    s3, n3 = km._update_kernel(x, l1, K34_K)
+    lab64 = l1.long()
+    k4 = dict(n=K34_N, d=K34_D, k=K34_K, counts_equal=bool(torch.equal(n1, n2)),
+              sums_close=bool(torch.isclose(s1, s2, rtol=1e-5, atol=1e-4).all()),
+              max_abs_err=float((s1 - s2).abs().max()),
+              repeat_identical=bool(torch.equal(s1, s3) and torch.equal(n1, n3)),
+              kernel_ms=cuda_ms(lambda: km._update_kernel(x, l1, K34_K), reps=5),
+              plain_ms=cuda_ms(lambda: km._update_ref(x, l1, K34_K), reps=1, warmup=0),
+              library_ms=cuda_ms(
+                  lambda: torch.zeros(K34_K, K34_D, device=DEVICE).index_add_(0, lab64, x),
+                  reps=5))
+    k4["bound_ms"], k4["bound_by"] = k4_bound_ms(K34_N, K34_K, K34_D)
+    log(f"[k4] {json.dumps(k4)}")
+    if not (k4["counts_equal"] and k4["sums_close"] and k4["repeat_identical"]):
+        fail(f"K4 disagrees with its plain version: {json.dumps(k4)}")
+    return k3, k4
+
+
+def sog_stage_times(text):
+    """Stage times (ms) from a run with timing on: the converter's stages
+    and the SOG writer's sog.* stages."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"\[timing\] ([\w.+]+): ([0-9.]+) ms", text)}
+
+
+def corr_per_channel(a, b):
+    return [float(np.corrcoef(a[:, ch].ravel(), b[:, ch].ravel())[0, 1]) for ch in range(3)]
+
+
+def plain_fit(km, x, chunks, k, iters=10):
+    """kmeans_chunked's fit of x (same chunk layout, init and seed as the
+    writer's) with every Lloyd step through K2's plain version at bf16."""
+    n, d = x.shape
+    xc, c, nv = chunked_inputs(km, x, chunks, k)
+    for _ in range(iters):
+        sums, counts, _ = km._lloyd_ref(xc, c, nv, "bf16")
+        c = km._centroid_means(sums, counts, c)
+    _, _, labels = km._lloyd_ref(xc, c, nv, "bf16")
+    offs = (torch.arange(chunks, device=x.device, dtype=torch.int32) * k)[:, None]
+    return c.reshape(chunks * k, d), (labels + offs).reshape(-1)[:n]
+
+
+def palette_mse(x, fit):
+    """Mean squared error of x against its palette reconstruction."""
+    c, labels = fit
+    return float(((x - c[labels.long()]) ** 2).mean())
+
+
+def check_sog_output(path, src_cloud, order, x, fit, plain):
+    """Decode a written .sog and hold it against its source, the palette fit
+    that wrote it and the same fit through K2's plain version: every splat,
+    finite, positions within the u16 log step, the file's palette labels
+    equal to the fit's, the decoded SH against the fit's reconstruction,
+    and the decoded SH's error against x (the writer's dequantized input)
+    within 1.02x of the plain fit's palette error."""
+    from gsconverter_tpu_torch.formats import get_handler, sog
+
+    back = get_handler("sog").read(path)
+    n = back.n
+    if n != src_cloud.n:
+        fail(f".sog decodes to {n} splats, {src_cloud.n} were written")
+    for name in ("pos", "opacity", "log_scale", "quat", "sh_dc", "sh_rest"):
+        if not np.isfinite(np.asarray(getattr(back, name))).all():
+            fail(f".sog output has non-finite {name}")
+    with zipfile.ZipFile(path) as zf:
+        meta = json.load(zf.open("meta.json"))
+        lraw = sog._read_webp_flat(zf, "shN_labels.webp", n)
+    labels = lraw[:, 0].astype(np.int64) | (lraw[:, 1].astype(np.int64) << 8)
+    c, l = fit
+    same_labels = bool(np.array_equal(labels, l.cpu().numpy()))
+    pos = np.asarray(src_cloud.pos)[order]
+    step = (np.array(meta["means"]["maxs"]) - np.array(meta["means"]["mins"])) / 65535.0
+    # log|p| is truncated to u16, losing up to one step; 1.5 steps leave
+    # room for the f32 roundings of the decode
+    pos_err = np.abs(back.pos - pos) / ((np.abs(pos) + 1.0) * step)
+    pos_ok = bool(pos_err.max() <= 1.5)
+    dim = 8
+    src = np.asarray(src_cloud.sh_rest)[order][:, :, :dim]
+    dec = back.sh_rest[:, :, :dim]
+    recon = c.cpu().numpy()[l.cpu().numpy()].reshape(n, 3, dim)
+    out = dict(n=n, positions_within_step=pos_ok, pos_err_steps=float(pos_err.max()),
+               labels_equal_fit=same_labels,
+               corr_decoded_vs_fit=corr_per_channel(dec, recon),
+               corr_decoded_vs_source=corr_per_channel(dec, src),
+               mse_vs_source=float(((dec - src) ** 2).mean()),
+               var_source=float(src.var()),
+               mse_file_vs_x=float(((dec - x.cpu().numpy().reshape(n, 3, dim)) ** 2).mean()),
+               mse_fit_vs_x=palette_mse(x, fit),
+               mse_plain_fit_vs_x=palette_mse(x, plain))
+    out["mse_ratio_file_vs_plain"] = out["mse_file_vs_x"] / out["mse_plain_fit_vs_x"]
+    if not pos_ok or not same_labels or min(out["corr_decoded_vs_fit"]) <= 0.99 \
+            or out["mse_vs_source"] >= out["var_source"] \
+            or out["mse_ratio_file_vs_plain"] > 1.02:
+        fail(f".sog output check failed: {json.dumps(out)}")
+    return out
+
+
+def phase_sog(km, smi):
+    """ply -> sog at full width, levels 1 and 10, on the card."""
+    from gsconverter_tpu_torch.converter import Converter
+    from gsconverter_tpu_torch.formats import get_handler, sog
+
+    src = os.path.join(OUT_DIR, "scene_sog.ply")
+    t0 = time.perf_counter()
+    mint_scene(src, SOG_N, seed=2, flyers=0.0)
+    log(f"[sog] minted {SOG_N}-splat scene in {time.perf_counter() - t0:.2f} s")
+    src_cloud = get_handler("3dgs").read(src)
+    order = sog.morton_order(np.ascontiguousarray(src_cloud.pos))
+    q8, scale, mn = sog.shn_u8(np.asarray(src_cloud.sh_rest)[:, :, :8], SOG_N, SOG_D)
+    x = sog._dequant_u8(torch.from_numpy(q8[order]).to(DEVICE), scale, mn)
+    del q8
+    runs = {}
+    for level in SOG_LEVELS:
+        out = os.path.join(OUT_DIR, f"out_{level}.sog")
+        conv = Converter(src, out, "sog", device=DEVICE)
+        buf = io.StringIO()
+        km.LAUNCHES.update(dict.fromkeys(km.LAUNCHES, 0))
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            conv.run(compression_level=level, timing=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(km.LAUNCHES)
+        chunks, k = sog.palette_size(SOG_N, level)
+        # the palette fit alone, synchronised: the same input and seed as
+        # the writer's, so the same (deterministic) result
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = km.kmeans_chunked(x, chunks, k, max_iter=10, seed=100)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = plain_fit(km, x, chunks, k)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        r = dict(level=level, chunks=chunks, k_per_chunk=k, wall_s=wall,
+                 launches=launches, palette_fit_s=fit_s, plain_fit_s=plain_s,
+                 stages_ms=sog_stage_times(buf.getvalue()),
+                 check=check_sog_output(out, src_cloud, order, x, fit, plain))
+        log(f"[sog] ply -> sog level {level} on {smi}: {json.dumps(r)}")
+        if launches["lloyd"] != 11:
+            fail(f"ply -> sog level {level} launched K2 {launches['lloyd']} times, not 11")
+        os.unlink(out)
+        runs[level] = r
+    os.unlink(src)
+    return runs
+
+
+def phase_small_sog():
+    """A 20k-splat scene to .sog on the card and on the CPU."""
+    from gsconverter_tpu_torch import convert
+    from gsconverter_tpu_torch.formats import get_handler, sog
+
+    src = os.path.join(OUT_DIR, "scene_sog_20k.ply")
+    mint_scene(src, SMALL_SOG_N, seed=3, flyers=0.0)
+    src_cloud = get_handler("3dgs").read(src)
+    ref = np.asarray(src_cloud.sh_rest)[sog.morton_order(np.asarray(src_cloud.pos))]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        path = os.path.join(OUT_DIR, f"small_{dev}.sog")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert(src, path, "sog", device=dev, compression_level=1)
+        with zipfile.ZipFile(path) as zf:
+            entries = [(i.filename, zf.read(i.filename)) for i in zf.infolist()]
+        back = get_handler("sog").read(path).sh_rest
+        out[dev] = dict(entries=entries, mse=float(((back - ref)[:, :, :8] ** 2).mean()))
+    gpu, cpu = dict(out[DEVICE]["entries"]), dict(out["cpu"]["entries"])
+    palette = ("shN_centroids.webp", "shN_labels.webp", "meta.json")
+    same = [name for name in gpu if name not in palette and gpu[name] == cpu.get(name)]
+    metas = [json.loads(m["meta.json"]) for m in (gpu, cpu)]
+    for m in metas:
+        m["shN"].pop("codebook")
+    r = dict(n=SMALL_SOG_N, identical_entries=same, meta_equal=metas[0] == metas[1],
+             mse_cuda=out[DEVICE]["mse"], mse_cpu=out["cpu"]["mse"])
+    log(f"[sog] 20k scene, cuda vs cpu: {json.dumps(r)}")
+    if len(same) != len(gpu) - 3 or list(gpu) != list(cpu) or not r["meta_equal"]:
+        fail("the 20k .sog differs between cuda and cpu outside the palette")
+    if r["mse_cuda"] > 1.25 * r["mse_cpu"]:
+        fail("the 20k .sog palette on cuda reconstructs worse than 1.25x the cpu's")
+    os.unlink(src)
+    return r
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -359,16 +692,19 @@ def main():
     log(f"[device] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    from gsconverter_tpu_torch.ops import kmeans as km
     from gsconverter_tpu_torch.ops import sor
     from gsconverter_tpu_torch.utils import cuda_build
 
-    # 2. build
+    # 2. build: one nvcc per source
     t0 = time.perf_counter()
     cuda_build.build("sor_window")
-    log(f"[build] sor_window built in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.BUILD_LOG.get("sor_window", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    cuda_build.build("kmeans")
+    log(f"[build] sor_window and kmeans built in {time.perf_counter() - t0:.2f} s")
+    for name in ("sor_window", "kmeans"):
+        for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     t_all = time.perf_counter()
@@ -382,9 +718,16 @@ def main():
     r = compare_k1(sor, spos, k, window, iters, real=real)
     r.update(n=spos.shape[0], k=k, window=window, iters=iters)
     log(f"[k1] main-path input: {json.dumps(r)}")
+    # 6. K2, K3, K4 against their plain versions
+    k2 = phase_k2(km)
+    k3, k4 = phase_k3_k4(km)
+    # 7. the SOG path
+    sog_runs = phase_sog(km, smi)
+    small_sog = phase_small_sog()
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    log(f"[done] phases 3-5 in {time.perf_counter() - t_all:.1f} s; "
-        f"small scene byte-identical={small_same}")
+    log(f"[done] phases 3-7 in {time.perf_counter() - t_all:.1f} s; "
+        f"small scene byte-identical={small_same}; "
+        f"small .sog cuda/cpu mse {small_sog['mse_cuda']:.6g}/{small_sog['mse_cpu']:.6g}")
 
     kernels = [{
         "name": "K1 sor_window_md",
@@ -402,6 +745,57 @@ def main():
         "library_ms": r["library_ms"],
         "main_path_shape": {"n": r["n"], "k": k, "window": window, "iters": iters},
         "settings": settings,
+    }]
+    # K2's main path: level 1 of the SOG path (bf16, k=1024)
+    main_k2 = next(x for x in k2 if x["k"] == K2_KS[0] and x["precision"] == "bf16")
+    kmeans_src = "gsconverter_tpu_torch/csrc/kmeans.cu"
+    kernels += [{
+        "name": "K2 kmeans_lloyd",
+        "route": "cuda",
+        "source": kmeans_src,
+        "replaces": "gsconverter_tpu/ops/kmeans.py:264",
+        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["lloyd"],
+        "launches_by_level": {lv: run["launches"]["lloyd"] for lv, run in sog_runs.items()},
+        "max_abs_err": main_k2["max_abs_err"],
+        "ms": main_k2["kernel_ms"],
+        "kernel_ms": main_k2["kernel_ms"],
+        "plain_ms": main_k2["plain_ms"],
+        "bound_ms": main_k2["bound_ms"],
+        "bound_by": main_k2["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a Lloyd step
+        "matmul_ms": main_k2["matmul_ms"],  # the distance product alone
+        "shape": {key: main_k2[key] for key in ("chunks", "rows", "d", "k", "precision")},
+        "settings": k2,
+    }, {
+        "name": "K3 kmeans_assign",
+        "route": "cuda",
+        "source": kmeans_src,
+        "replaces": "gsconverter_tpu/ops/kmeans.py:61",
+        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["assign"],  # not on the SOG path
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["kernel_ms"],
+        "kernel_ms": k3["kernel_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes an argmin assign
+        "matmul_ms": k3["matmul_ms"],  # the distance product alone
+        "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
+        "label_agree": k3["label_agree"],
+    }, {
+        "name": "K4 kmeans_update",
+        "route": "cuda",
+        "source": kmeans_src,
+        "replaces": "gsconverter_tpu/ops/kmeans.py:165",
+        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["update"],  # not on the SOG path
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["kernel_ms"],
+        "kernel_ms": k4["kernel_ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],  # index_add_
+        "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

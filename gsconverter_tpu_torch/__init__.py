@@ -2,8 +2,8 @@
 
 The port of ``gsconverter_tpu`` to an NVIDIA Hopper card: the same
 canonical SoA splat cloud, codecs and filter chain, with the statistical
-outlier filter's window search as a hand-written CUDA kernel
-(``csrc/sor_window.cu``).  Entry points run their device stages on the card
+outlier filter's window search (``csrc/sor_window.cu``) and the K-Means
+behind the SOG palette (``csrc/kmeans.cu``) as hand-written CUDA kernels.  Entry points run their device stages on the card
 unless the caller passes ``device="cpu"``.
 """
 

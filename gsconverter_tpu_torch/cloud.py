@@ -38,6 +38,8 @@ SH_C0 = 0.28209479177387814
 
 # Per-channel AC coefficient count by degree (reference spz.py:264-265).
 DIM_FOR_DEGREE = {0: 0, 1: 3, 2: 8, 3: 15}
+# Total AC coefficient count (3 channels) by degree.
+COEFFS_FOR_DEGREE = {0: 0, 1: 9, 2: 24, 3: 45}
 MAX_SH_DIM = 15  # degree 3 per-channel width
 
 _LEAVES = ("pos", "sh_dc", "sh_rest", "opacity", "log_scale", "quat", "normal")
@@ -197,6 +199,24 @@ class SplatCloud:
             rgb=named.get("rgb"),
             extras={k: named[f"x:{k}"] for k in self.extras},
         )
+
+    @staticmethod
+    def sh_rest_from_flat(flat):
+        """[N,K] channel-major flat coeffs (K in {0,9,24,45}) -> [N,3,15].
+
+        Re-strides lower-degree planar layouts into the canonical degree-3
+        width (the JAX package's divergence from the reference, whose PLY
+        reader pads a 9/24-coeff file verbatim into 45 slots).
+        """
+        n, k = flat.shape
+        dim = k // 3
+        if isinstance(flat, np.ndarray):
+            out = np.zeros((n, 3, MAX_SH_DIM), flat.dtype)
+        else:
+            out = torch.zeros((n, 3, MAX_SH_DIM), dtype=flat.dtype, device=flat.device)
+        if k:
+            out[:, :, :dim] = flat.reshape(n, 3, dim)
+        return out
 
     # --------------------------------------------------------- select/mask
     def select(self, idx) -> "SplatCloud":

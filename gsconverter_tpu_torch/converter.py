@@ -7,8 +7,9 @@ bbox -> alpha -> density -> SOR -> auto-bbox, auto-RGB for {cc, splat,
 ksplat, sog}, extras preserve/strip policy, and the progress milestones
 (5/25/30/40).
 
-``device`` (default: the card, "cuda") is where SOR runs; the cloud itself
-stays host-resident from read to write.  Without a GPU, pass
+``device`` (default: the card, "cuda") is where the device stages run: SOR
+and the SOG writer's palette fit; the cloud itself stays host-resident from
+read to write.  Without a GPU, pass
 ``device="cpu"``: the default never falls back to the CPU on its own.
 """
 
@@ -299,6 +300,7 @@ class Converter:
         # the pipeline already scanned content for the SH degree and synced
         # the metadata; the hint lets codecs skip their own full re-scan
         write_kwargs.setdefault("sh_content_degree", cloud.active_sh_degree)
+        write_kwargs["device"] = self.device  # codecs without device stages ignore it
         with self.timer.stage("write", cloud.n):
             target_handler.write(cloud, self.output_path, **write_kwargs)
         pbar.update(40)

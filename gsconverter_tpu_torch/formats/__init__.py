@@ -2,6 +2,7 @@
 
 from .base import NOT_PORTED, BaseFormat, get_handler, known_formats
 from .ply_gs import Ply3DGSFormat, PlyCCFormat
+from .sog import SogFormat
 from .splat import SplatFormat
 
 __all__ = [
@@ -11,5 +12,6 @@ __all__ = [
     "known_formats",
     "Ply3DGSFormat",
     "PlyCCFormat",
+    "SogFormat",
     "SplatFormat",
 ]

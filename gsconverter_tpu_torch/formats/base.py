@@ -21,7 +21,6 @@ _REGISTRY: dict[str, type["BaseFormat"]] = {}
 #: formats of gsconverter_tpu still to port -> the ROADMAP item that ports them
 NOT_PORTED = {
     "ksplat": "queue 1, formats/ksplat.py",
-    "sog": "queue 1, K-Means + SOG",
     "spz": "queue 1, remaining codecs + batch",
     "compressed_ply": "queue 1, remaining codecs + batch",
     "parquet": "queue 1, remaining codecs + batch",

@@ -4,7 +4,7 @@ Entry point: ``python -m gsconverter_tpu_torch``.  Supports --info
 inspection with glob, auto-output path and extension derivation with
 collision suffixes, the no-op conversion guard, overwrite confirmation
 unless --force, and before/after file info reports.  ``--device`` (default
-``cuda``) is where the device stages run; without a GPU, pass
+``cuda``) is where the device stages (SOR, the SOG palette fit) run; without a GPU, pass
 ``--device cpu``.
 """
 
@@ -94,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=(
             "Universal 3D Gaussian Splatting Converter (PyTorch/CUDA). Ported so "
-            "far: 3DGS (.ply), CloudCompare (.ply), Splat (.splat)."
+            "far: 3DGS (.ply), CloudCompare (.ply), Splat (.splat), SOG (.sog)."
         )
     )
     parser.add_argument("--input", "-i", required=True, help="Path to the source point cloud file.")
@@ -137,8 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compression_level", type=int, default=0,
                         help="Compression level (0-9); format specific (KSplat/SPZ/SOG).")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                        help="Device of the device stages (SOR). Default: cuda; "
-                             "without a GPU pass --device cpu.")
+                        help="Device of the device stages (SOR, the SOG palette "
+                             "fit). Default: cuda; without a GPU pass --device cpu.")
     return parser
 
 

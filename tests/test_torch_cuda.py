@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs a CUDA card and skips without one.  The module
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -14,6 +14,7 @@ import torch
 from gsconverter_tpu_torch import convert
 from gsconverter_tpu_torch.cloud import SplatCloud
 from gsconverter_tpu_torch.formats import get_handler
+from gsconverter_tpu_torch.ops import kmeans as km
 from gsconverter_tpu_torch.ops import sor
 from gsconverter_tpu_torch.ops.padding import PAD_POS, pad_rows
 
@@ -23,7 +24,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernel K1 (csrc/sor_window.cu) has no CPU mode")
+        pytest.skip("needs a CUDA card: kernels K1-K4 (csrc/*.cu) have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -105,3 +106,157 @@ def test_convert_on_card_matches_cpu(card, tmp_path):
     assert out["cuda"][2] == 1 and out["cpu"][2] == 0
     assert out["cuda"][0] < n - 30  # the scattered flyers are gone
     assert out["cuda"][:2] == out["cpu"][:2]
+
+
+# ------------------------------------------------------------ K2, K3, K4
+
+
+def _kmeans_inputs(card, chunks=3, p=4096, d=24, k=130, seed=0, grid=True):
+    """Chunked rows (u8-grid values, as SOG's, so exact ties occur), their
+    centroids drawn from the rows, and n_valid with a partial and an empty
+    chunk."""
+    r = np.random.default_rng(seed)
+    x = r.integers(0, 40, (chunks, p, d)).astype(np.float32) * np.float32(0.01)
+    if not grid:
+        x = r.normal(0, 1, (chunks, p, d)).astype(np.float32)
+    c = np.stack([x[i, r.choice(p // 2, k, replace=False)] for i in range(chunks)])
+    nv = np.array([p, p // 2 + 7, 0][:chunks], np.int32)
+    return (torch.from_numpy(x).to(card), torch.from_numpy(c).to(card),
+            torch.from_numpy(nv).to(card))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [130, 1024])
+def test_lloyd_kernel_matches_plain_version(card, precision, k):
+    x, c, nv = _kmeans_inputs(card, k=k)
+    launches = km.LAUNCHES["lloyd"]
+    s1, n1, l1 = km._lloyd_kernel(x, c, nv, precision)
+    torch.cuda.synchronize()
+    assert km.LAUNCHES["lloyd"] == launches + 1
+    s2, n2, l2 = km._lloyd_ref(x, c, nv, precision)
+    real = torch.arange(x.shape[1], device=card)[None, :] < nv[:, None]
+    # the plain version forms every distance as the kernel does
+    assert float((l1 == l2)[real].float().mean()) == 1.0
+    assert torch.equal(n1, n2)
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+    # two launches: bit-identical
+    s3, n3, l3 = km._lloyd_kernel(x, c, nv, precision)
+    assert torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3)
+
+
+def test_kernels_resolve_exact_ties_to_the_lowest_index(card):
+    x, c, nv = _kmeans_inputs(card, chunks=1, p=2048, k=600)
+    # duplicates in other tiles and rows sitting on them
+    c[0, 300] = c[0, 5]
+    c[0, 550] = c[0, 260]
+    x[0, :50] = c[0, 5]
+    x[0, 50:100] = c[0, 260]
+    for lab in (km._lloyd_kernel(x, c, nv, "f32")[2][0], km._assign_kernel(x[0], c[0])):
+        assert bool((lab[:50] == 5).all()) and bool((lab[50:100] == 260).all())
+
+
+def test_assign_kernel_matches_plain_version(card):
+    x, c, _ = _kmeans_inputs(card, chunks=1, p=9000, k=4100, seed=1)
+    launches = km.LAUNCHES["assign"]
+    l1 = km._assign_kernel(x[0], c[0])
+    torch.cuda.synchronize()
+    assert km.LAUNCHES["assign"] == launches + 1
+    assert torch.equal(l1, km._assign_ref(x[0], c[0]))
+    assert torch.equal(l1, km._assign_kernel(x[0], c[0]))
+
+
+def test_update_kernel_matches_plain_version(card):
+    r = np.random.default_rng(2)
+    x = torch.from_numpy(r.normal(0, 1, (7000, 24)).astype(np.float32)).to(card)
+    lab = torch.from_numpy(r.integers(-1, 301, 7000).astype(np.int32)).to(card)
+    launches = km.LAUNCHES["update"]
+    s1, n1 = km._update_kernel(x, lab, 300)
+    torch.cuda.synchronize()
+    assert km.LAUNCHES["update"] == launches + 1
+    s2, n2 = km._update_ref(x, lab, 300)
+    assert torch.equal(n1, n2)
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+    s3, n3 = km._update_kernel(x, lab, 300)
+    assert torch.equal(s1, s3) and torch.equal(n1, n3)
+
+
+def test_kmeans_kernels_reject_what_they_do_not_take(card):
+    x, c, nv = _kmeans_inputs(card, chunks=1, p=512, k=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        km._lloyd_kernel(x.transpose(1, 2).contiguous().transpose(1, 2), c, nv)
+    with pytest.raises(ValueError, match="float32"):
+        km._assign_kernel(x[0].double(), c[0])
+    with pytest.raises(ValueError, match="int32"):
+        km._update_kernel(x[0], torch.zeros(512, dtype=torch.int64, device=card), 16)
+    wide = torch.zeros(512, km.MAX_D + 1, device=card)
+    with pytest.raises(ValueError, match=f"D <= {km.MAX_D}"):
+        km._lloyd_kernel(wide[None], wide[None, :16], nv)
+    with pytest.raises(ValueError, match=f"D <= {km.MAX_D}"):
+        km.assign(wide, wide[:16])
+    with pytest.raises(ValueError, match=f"D <= {km.MAX_D}"):
+        km.update(wide, torch.zeros(512, dtype=torch.int32, device=card), 16, wide[:16])
+
+
+@pytest.mark.parametrize("d,k,p", [(104, 130, 2048), (112, 130, 2048), (128, 300, 2048),
+                                   (300, 64, 2048), (1000, 40, 1024), (24, 2100, 4608)])
+def test_kmeans_kernels_at_any_width(card, d, k, p):
+    """Every row tile size of csrc/kmeans.cu (512 rows up to D = 104, 256 up
+    to 208, fewer with several threads a row beyond), and K2 above the JAX
+    package's K <= 2048, against the plain versions."""
+    x, c, nv = _kmeans_inputs(card, chunks=2, p=p, d=d, k=k, seed=d)
+    real = torch.arange(p, device=card)[None, :] < nv[:, None]
+    for precision in ("f32", "bf16"):
+        s1, n1, l1 = km._lloyd_kernel(x, c, nv, precision)
+        s2, n2, l2 = km._lloyd_ref(x, c, nv, precision)
+        assert torch.equal(l1[real], l2[real]) and torch.equal(n1, n2)
+        torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+        s3, n3, l3 = km._lloyd_kernel(x, c, nv, precision)
+        assert torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3)
+    assert torch.equal(km._assign_kernel(x[0], c[0]), km._assign_ref(x[0], c[0]))
+    lab = l1[0].contiguous()
+    s1, n1 = km._update_kernel(x[0], lab, k)
+    s2, n2 = km._update_ref(x[0], lab, k)
+    assert torch.equal(n1, n2)
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+
+
+def test_public_kmeans_calls_launch_the_kernels_on_card(card):
+    """lloyd_step beyond the bf16 range runs K2 in f32 (the JAX package's
+    f32 route there); assign and update launch K3 and K4 at any width."""
+    x, c, _ = _kmeans_inputs(card, chunks=1, p=4608, d=24, k=2100)
+    before = dict(km.LAUNCHES)
+    s1, n1, l1 = km.lloyd_step(x[0], c[0], 2100)
+    s2, n2, l2 = km._lloyd_ref(x, c, torch.tensor([4608], dtype=torch.int32, device=card),
+                               "f32")
+    assert torch.equal(l1, l2[0]) and torch.equal(n1, n2[0])
+    wide = x[0, :, :1].repeat(1, 300).contiguous()
+    lab = km.assign(wide, wide[:40])
+    km.update(wide, lab, 40, wide[:40])
+    assert km.LAUNCHES["lloyd"] == before["lloyd"] + 1
+    assert km.LAUNCHES["assign"] == before["assign"] + 1
+    assert km.LAUNCHES["update"] == before["update"] + 1
+
+
+def test_sog_written_twice_on_card_is_byte_identical(card, tmp_path):
+    r = np.random.default_rng(4)
+    n = 20_000
+    rest = np.zeros((n, 3, 15), np.float32)
+    rest[:, :, :8] = r.normal(0, 0.1, (n, 3, 8))
+    quat = r.normal(0, 1, (n, 4)).astype(np.float32)
+    cloud = SplatCloud(
+        pos=r.normal(0, 2, (n, 3)).astype(np.float32),
+        sh_dc=r.normal(0, 0.5, (n, 3)).astype(np.float32), sh_rest=rest,
+        opacity=r.normal(1, 2, (n,)).astype(np.float32),
+        log_scale=r.normal(-4, 0.5, (n, 3)).astype(np.float32),
+        quat=quat / np.linalg.norm(quat, axis=1, keepdims=True),
+        normal=np.zeros((n, 3), np.float32), active_sh_degree=2)
+    outs = []
+    for i in range(2):
+        path = str(tmp_path / f"{i}.sog")
+        launches = km.LAUNCHES["lloyd"]
+        get_handler("sog").write(cloud, path, device="cuda", compression_level=1)
+        assert km.LAUNCHES["lloyd"] == launches + 11  # 10 steps + final labels
+        outs.append(open(path, "rb").read())
+    assert outs[0] == outs[1]
+    back = get_handler("sog").read(str(tmp_path / "0.sog"))
+    assert back.n == n and back.active_sh_degree == 2

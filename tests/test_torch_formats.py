@@ -212,6 +212,6 @@ def test_extra_elements_through_converter(tmp_path, jax_one_device):
 
 
 def test_unported_formats_raise():
-    for fmt in ("ksplat", "spz", "sog", "parquet", "compressed_ply"):
+    for fmt in ("ksplat", "spz", "parquet", "compressed_ply"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_handler(fmt)

@@ -22,6 +22,27 @@ def jax_one_device():
     clear_active_mesh()
 
 
+def jax_chunk_init(seed):
+    """A stand-in for the port's ``ops.kmeans.init_centroids`` that returns
+    the JAX package's k-means++ init of each chunk, drawn from the key the
+    JAX ``kmeans_chunked`` gives chunk i: ``fold_in(PRNGKey(seed), i)``."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from gsconverter_tpu.ops import kmeans as jkm
+
+    def init(x, k, seed_, valid=None, n_valid=None):
+        assert seed_ == seed and x.dim() == 3
+        out = [np.asarray(jkm.init_centroids(
+            jnp.asarray(x[i].numpy()), k,
+            jax.random.fold_in(jax.random.PRNGKey(seed), i),
+            valid=jnp.asarray(valid[i].numpy()))) for i in range(x.shape[0])]
+        return torch.from_numpy(np.stack(out))
+
+    return init
+
+
 def to_port(jax_cloud) -> TorchCloud:
     """The JAX package's cloud carried across as the port's host cloud."""
     return TorchCloud.from_numpy(jax_cloud.to_numpy())
