@@ -4,8 +4,9 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit; TF32 off;
-  2. build: csrc/sor_window.cu (K1) and csrc/kmeans.cu (K2-K4), one nvcc
-     each, with ptxas's registers, shared memory, spills;
+  2. build: csrc/sor_window.cu (K1), csrc/kmeans.cu (K2, K3) and
+     csrc/kmeans_update.cu (K4), one nvcc each, all started together, with
+     ptxas's registers, shared memory, spills;
   3. K1 against its plain PyTorch version at two settings on the card
      (4,194,304 points at k=25, sigma=10.5: one pass, window 256, 7 steps;
      1,048,576 points at k=25, sigma=2.0: two passes, window 512, 10 steps):
@@ -22,7 +23,9 @@ Phases (any failure ends the run with a non-zero exit):
      palette's shapes for 3M splats (64 chunks of 65,536 rows, D=24, the
      trailing chunks padding only) at k=1024 and k=64, bf16 and f32;
      K3 (assign) and K4 (update) at N=1,048,576, D=24, K=4096; each with
-     its agreement, repeat-identity, times and bound;
+     its agreement, repeat-identity, times and bound; K4 also bit for bit
+     against its summation order in plain PyTorch, timed on a skewed input
+     (every label 0), and its kernels' device times by torch.profiler;
   7. the SOG path at full width: a 3M-splat, SH-degree-2 scene through
      Converter.run to .sog at compression levels 1 and 10 on the card, with
      K2's launches, the writer's stage times, the palette fit's own time,
@@ -47,6 +50,7 @@ import subprocess
 import sys
 import time
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -116,6 +120,28 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_split_us(fn, reps=10):
+    """Mean device time (us) per call of each kernel that ``fn`` launches,
+    by torch.profiler over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = re.search(r"(\w+_kernel(?:<[^>]*>)?)", evt.key)
+        if name and us > 0:
+            split[name.group(1)] = split.get(name.group(1), 0.0) + us / reps
+    return split
 
 
 def k1_bound_ms(n, window, iters):
@@ -494,20 +520,31 @@ def phase_k3_k4(km):
     torch.cuda.synchronize()
     s2, n2 = km._update_ref(x, l1, K34_K)
     s3, n3 = km._update_kernel(x, l1, K34_K)
+    so, no = km._update_ordered_ref(x, l1, K34_K)
+    # the skewed input: one cluster of N / 256 pieces
+    zero = torch.zeros_like(l1)
+    sz, nz = km._update_kernel(x, zero, K34_K)
+    szo, nzo = km._update_ordered_ref(x, zero, K34_K)
     lab64 = l1.long()
     k4 = dict(n=K34_N, d=K34_D, k=K34_K, counts_equal=bool(torch.equal(n1, n2)),
               sums_close=bool(torch.isclose(s1, s2, rtol=1e-5, atol=1e-4).all()),
               max_abs_err=float((s1 - s2).abs().max()),
+              ordered_equal=bool(torch.equal(s1, so) and torch.equal(n1, no)),
+              skew_ordered_equal=bool(torch.equal(sz, szo) and torch.equal(nz, nzo)),
               repeat_identical=bool(torch.equal(s1, s3) and torch.equal(n1, n3)),
-              kernel_ms=cuda_ms(lambda: km._update_kernel(x, l1, K34_K), reps=5),
+              kernel_ms=cuda_ms(lambda: km._update_kernel(x, l1, K34_K), reps=20),
+              skew_ms=cuda_ms(lambda: km._update_kernel(x, zero, K34_K), reps=20),
               plain_ms=cuda_ms(lambda: km._update_ref(x, l1, K34_K), reps=1, warmup=0),
               library_ms=cuda_ms(
                   lambda: torch.zeros(K34_K, K34_D, device=DEVICE).index_add_(0, lab64, x),
-                  reps=5))
+                  reps=20),
+              split_us=device_split_us(lambda: km._update_kernel(x, l1, K34_K)),
+              skew_split_us=device_split_us(lambda: km._update_kernel(x, zero, K34_K)))
     k4["bound_ms"], k4["bound_by"] = k4_bound_ms(K34_N, K34_K, K34_D)
     log(f"[k4] {json.dumps(k4)}")
-    if not (k4["counts_equal"] and k4["sums_close"] and k4["repeat_identical"]):
-        fail(f"K4 disagrees with its plain version: {json.dumps(k4)}")
+    if not (k4["counts_equal"] and k4["sums_close"] and k4["repeat_identical"]
+            and k4["ordered_equal"] and k4["skew_ordered_equal"]):
+        fail(f"K4 disagrees with its plain versions: {json.dumps(k4)}")
     return k3, k4
 
 
@@ -696,12 +733,13 @@ def main():
     from gsconverter_tpu_torch.ops import sor
     from gsconverter_tpu_torch.utils import cuda_build
 
-    # 2. build: one nvcc per source
+    # 2. build: one nvcc per source, all started together
+    sources = ("sor_window", "kmeans", "kmeans_update")
     t0 = time.perf_counter()
-    cuda_build.build("sor_window")
-    cuda_build.build("kmeans")
-    log(f"[build] sor_window and kmeans built in {time.perf_counter() - t0:.2f} s")
-    for name in ("sor_window", "kmeans"):
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cuda_build.build, sources))
+    log(f"[build] {', '.join(sources)} built in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -749,6 +787,7 @@ def main():
     # K2's main path: level 1 of the SOG path (bf16, k=1024)
     main_k2 = next(x for x in k2 if x["k"] == K2_KS[0] and x["precision"] == "bf16")
     kmeans_src = "gsconverter_tpu_torch/csrc/kmeans.cu"
+    update_src = "gsconverter_tpu_torch/csrc/kmeans_update.cu"
     kernels += [{
         "name": "K2 kmeans_lloyd",
         "route": "cuda",
@@ -785,7 +824,7 @@ def main():
     }, {
         "name": "K4 kmeans_update",
         "route": "cuda",
-        "source": kmeans_src,
+        "source": update_src,
         "replaces": "gsconverter_tpu/ops/kmeans.py:165",
         "launches": sog_runs[SOG_LEVELS[0]]["launches"]["update"],  # not on the SOG path
         "max_abs_err": k4["max_abs_err"],
@@ -795,6 +834,8 @@ def main():
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],  # index_add_
+        "skew_ms": k4["skew_ms"],  # every label 0
+        "ordered_equal": k4["ordered_equal"],
         "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,10 @@
-// K-Means on Hopper (sm_90a): kernels K2 (fused Lloyd step), K3 (assign)
-// and K4 (update), with a plain C interface for ctypes.
+// K-Means on Hopper (sm_90a): kernels K2 (fused Lloyd step) and K3
+// (assign), with a plain C interface for ctypes.  K4 (update) lives in
+// kmeans_update.cu.
 //
 // Replaces the Pallas TPU kernels of gsconverter_tpu/ops/kmeans.py:
 //   K2 kmeans_lloyd  <- _lloyd_kernel  (launched by _lloyd_pallas)
 //   K3 kmeans_assign <- _assign_kernel (launched by _assign_pallas)
-//   K4 kmeans_update <- _update_kernel (launched by _update_sums_pallas)
 //
 // Same functions, same numbers as the TPU kernels:
 //   d[r, j] = ||c_j||^2 - 2 * x_r . c_j, with ||c_j||^2 from the f32
@@ -12,9 +12,8 @@
 //   tie, across centroid tiles too); in bf16 mode x and c are rounded to
 //   bf16 (nearest even) before the product, the products are exact in f32
 //   and summed in f32, and the segment sums add up the bf16-rounded x;
-//   K2's sums and counts take only rows r < n_valid of each chunk; K4
-//   drops labels outside [0, K).  Every kernel takes any K and rows of
-//   D <= 2048 values.
+//   K2's sums and counts take only rows r < n_valid of each chunk.  Both
+//   kernels take any K and rows of D <= 2048 values.
 //
 // K2 is batched over independent problems ("chunks"): x [C, P, D],
 // c [C, K, D], n_valid [C] -> labels [C, P], sums [C, K, D], counts [C, K].
@@ -26,7 +25,7 @@
 // VMEM.  These kernels are the simple first version: CUDA-core FMAs, no
 // tensor cores.  K2 and K3 are bound by FP32 FMA throughput (N * K * D FMAs for
 // the distances; the bf16 mode costs the same here, since the rounded
-// values are multiplied in f32); K4 by its bytes.  Design:
+// values are multiplied in f32).  Design:
 //   - 256 threads; a tile of rows of x sits in shared memory transposed
 //     ([D][rows + 1]: conflict-free both ways), and a tile of centroids
 //     beside it (all of them at D = 24, K <= 1632); every thread of a warp
@@ -323,38 +322,6 @@ nearest_pass_kernel(const float* __restrict__ x, const float* __restrict__ c,
   if (kSums && smem_sums) store_sums(acc, cnt, ps, pc, K, D);
 }
 
-// K4's pass: partial segment sums of rows [split * rps, +rps), in tiles of
-// tr rows, labels outside [0, K) dropped.
-__global__ void __launch_bounds__(kThreads)
-update_pass_kernel(const float* __restrict__ x, const int* __restrict__ labels,
-                   float* __restrict__ psums, int* __restrict__ pcounts,
-                   int N, int D, int K, int dp, int tr, int rps, int smem_sums) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  int* lab_s = reinterpret_cast<int*>(xs + dp * (tr + 1));
-  float* sums_s = reinterpret_cast<float*>(lab_s + kTileRows + 2 * kThreads);
-  int* cnt_s = reinterpret_cast<int*>(sums_s + static_cast<size_t>(K) * D);
-  const int split = blockIdx.x;
-  float* ps = psums + static_cast<size_t>(split) * K * D;
-  int* pc = pcounts + static_cast<size_t>(split) * K;
-  float* acc = smem_sums ? sums_s : ps;
-  int* cnt = smem_sums ? cnt_s : pc;
-  zero_sums(acc, cnt, K, D);
-  const int row_end = min(N, split * rps + rps);
-  for (int r0 = split * rps; r0 < row_end; r0 += tr) {
-    const int nrows = min(tr, row_end - r0);
-    __syncthreads();
-    load_x_tile(x, r0, nrows, D, dp, tr, false, xs);
-    for (int r = threadIdx.x; r < tr; r += kThreads) {
-      const int lab = r < nrows ? labels[r0 + r] : -1;
-      lab_s[r] = (lab < 0 || lab >= K) ? -1 : lab;
-    }
-    __syncthreads();
-    accumulate_tile(xs, tr + 1, lab_s, nrows, D, acc, cnt);
-  }
-  if (smem_sums) store_sums(acc, cnt, ps, pc, K, D);
-}
-
 // sums[c, j, d] = sum over s = 0, 1, ... of psums[c, s, j, d], in that order.
 __global__ void reduce_partials_kernel(const float* __restrict__ psums,
                                        const int* __restrict__ pcounts,
@@ -419,21 +386,6 @@ bool plan_nearest(bool sums, int D, int K, Plan* p) {
     p->kt = std::min(kpad, cap);
     p->smem = reserved + cent_bytes(p->kt, dp);
     return p->kt >= kJ && p->smem <= kSmemLimit;
-  }
-  return false;
-}
-
-// K4's pass: the most rows per x tile that fit; sums in shared memory when
-// they fit beside it.
-bool plan_update(int D, int K, Plan* p) {
-  const int dp = round_up(D, 4);
-  for (int tr = kTileRows; tr >= kMinTileRows; tr /= 2) {
-    const size_t xb = x_tile_bytes(dp, tr);
-    if (xb > kSmemLimit) continue;
-    p->tr = tr;
-    p->smem_sums = xb + sums_bytes(K, D) <= kSmemLimit;
-    p->smem = xb + (p->smem_sums ? sums_bytes(K, D) : 0);
-    return true;
   }
   return false;
 }
@@ -511,43 +463,18 @@ extern "C" int kmeans_assign(const float* x, const float* c, int* labels, int N,
                                nblocks, kTileRows, 0, static_cast<cudaStream_t>(stream));
 }
 
-// K4.  x [N, D] f32, labels [N] i32 -> sums [K, D], counts [K] f32; scratch
-// psums [nsplit, K, D] f32 and pcounts [nsplit, K] i32.
-extern "C" int kmeans_update(const float* x, const int* labels, float* sums,
-                             float* counts, float* psums, int* pcounts, int N, int D,
-                             int K, int nsplit, int rps, void* stream) {
+// Blocks of one K2 launch that the card holds at once: the occupancy of
+// its shared-memory footprint times the SMs.  The caller splits each
+// chunk's rows over about that many blocks in all, so that one wave covers
+// the launch.
+extern "C" int kmeans_resident_blocks(int D, int K, int* blocks) {
   Plan p;
-  if (N <= 0 || D <= 0 || D > kMaxD || K <= 0 || bad_split(N, nsplit, rps) ||
-      !plan_update(D, K, &p)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(update_pass_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(p.smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  update_pass_kernel<<<nsplit, kThreads, p.smem, s>>>(x, labels, psums, pcounts, N, D, K,
-                                                   round_up(D, 4), p.tr, rps,
-                                                   p.smem_sums ? 1 : 0);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_reduce(psums, pcounts, sums, counts, 1, nsplit, K, D, s);
-}
-
-// Blocks of one K2 (kind 0) or K4 (kind 1) launch that the card holds at
-// once: the occupancy of its shared-memory footprint times the SMs.  The
-// caller splits each chunk's rows over about that many blocks in all, so
-// that one wave covers the launch.
-extern "C" int kmeans_resident_blocks(int kind, int D, int K, int* blocks) {
-  Plan p;
-  if (D <= 0 || D > kMaxD || K <= 0 ||
-      !(kind == 0 ? plan_nearest(true, D, K, &p) : plan_update(D, K, &p))) {
+  if (D <= 0 || D > kMaxD || K <= 0 || !plan_nearest(true, D, K, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int per_sm = 0, device = 0, sms = 0;
-  int err = kind != 0 ? blocks_per_sm(update_pass_kernel, p.smem, &per_sm)
-            : p.tr == kTileRows ? blocks_per_sm(nearest_pass_kernel<true, 2>, p.smem, &per_sm)
-                                : blocks_per_sm(nearest_pass_kernel<true, 1>, p.smem, &per_sm);
+  int err = p.tr == kTileRows ? blocks_per_sm(nearest_pass_kernel<true, 2>, p.smem, &per_sm)
+                              : blocks_per_sm(nearest_pass_kernel<true, 1>, p.smem, &per_sm);
   if (err != 0) return err;
   err = static_cast<int>(cudaGetDevice(&device));
   if (err != 0) return err;

@@ -1,12 +1,14 @@
 """K-Means: k-means++ init, Lloyd steps, chunked palettes, assign, update.
 
 The JAX package's ``ops/kmeans.py`` on three Pallas TPU kernels, here on
-three hand-written CUDA kernels in ``csrc/kmeans.cu``:
+three hand-written CUDA kernels, K2 and K3 in ``csrc/kmeans.cu`` and K4 in
+``csrc/kmeans_update.cu``:
 
   - K2, the fused Lloyd step (labels, segment sums and counts in one pass
     over x), batched over independent chunks: ``_lloyd_kernel``;
   - K3, nearest-centroid labels for any K: ``_assign_kernel``;
-  - K4, segment sums and counts of labelled rows: ``_update_kernel``.
+  - K4, segment sums and counts of labelled rows, in a summation order
+    fixed by the input alone (``_update_ordered_ref``): ``_update_kernel``.
 
 Each wrapper launches its kernel on a CUDA tensor and takes its plain
 PyTorch version (``_lloyd_ref``, ``_assign_ref``, ``_update_ref``) on a CPU
@@ -50,6 +52,7 @@ MAX_D = 2048  # widest rows the kernels take (csrc/kmeans.cu kMaxD)
 # package's Lloyd step leaves its bf16 kernel for the f32 XLA route
 PRECISION_MAX_K, PRECISION_MAX_D = 2048, 128
 KERNEL_ROWS = 512  # most rows per x tile of csrc/kmeans.cu; a split holds a multiple
+UPDATE_PIECE = 256  # rows per piece of K4's summation order (csrc/kmeans_update.cu kPiece)
 _PARTIAL_FLOATS = 1 << 23  # bound on the [C, nsplit, K, D] partial sums
 _REF_ELEMS = 1 << 25  # bound on the plain versions' [C, rows, K] temporaries
 # k-means++ candidate pool when n_valid is given (JAX kmeans.py:381)
@@ -86,14 +89,13 @@ def _check_device(*ts: torch.Tensor) -> str:
     return dev.type
 
 
-def _split(kind: int, rows: int, problems: int, d: int, k: int) -> tuple[int, int]:
-    """(nsplit, rows per split) for a K2 (kind 0) or K4 (kind 1) launch over
-    ``problems`` chunks: as many blocks in all as the card holds at once
-    (one wave), each split a multiple of KERNEL_ROWS rows, the partial sums
-    within _PARTIAL_FLOATS."""
+def _split(rows: int, problems: int, d: int, k: int) -> tuple[int, int]:
+    """(nsplit, rows per split) for a K2 launch over ``problems`` chunks: as
+    many blocks in all as the card holds at once (one wave), each split a
+    multiple of KERNEL_ROWS rows, the partial sums within _PARTIAL_FLOATS."""
     resident = ctypes.c_int(0)
-    fn = _lib_fn("kmeans_resident_blocks", [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
-    _raise_on(fn(kind, d, k, ctypes.byref(resident)), "kmeans_resident_blocks")
+    fn = _lib_fn("kmeans_resident_blocks", [_I, _I, ctypes.POINTER(ctypes.c_int)])
+    _raise_on(fn(d, k, ctypes.byref(resident)), "kmeans_resident_blocks")
     tiles = -(-rows // KERNEL_ROWS)
     want = max(1, min(tiles, resident.value // problems,
                       _PARTIAL_FLOATS // (problems * k * d)))
@@ -110,11 +112,11 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
-def _lib_fn(name: str, argtypes):
-    """``name`` of the built ``csrc/kmeans.cu``, typed for ctypes."""
+def _lib_fn(name: str, argtypes, source: str = "kmeans"):
+    """``name`` of the built ``csrc/<source>.cu``, typed for ctypes."""
     from ..utils import cuda_build
 
-    fn = getattr(cuda_build.load("kmeans"), name)
+    fn = getattr(cuda_build.load(source), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -238,7 +240,7 @@ def _lloyd_kernel(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
     if d > MAX_D:
         raise ValueError(f"K2 takes D <= {MAX_D}, got {d}")
     with torch.cuda.device(x.device):
-        nsplit, rps = _split(0, p, cc, d, k)
+        nsplit, rps = _split(p, cc, d, k)
     labels = torch.empty((cc, p), dtype=torch.int32, device=x.device)
     sums = torch.empty((cc, k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty((cc, k), dtype=torch.float32, device=x.device)
@@ -342,9 +344,46 @@ def _update_ref(x: torch.Tensor, labels: torch.Tensor, k: int):
     return sums, counts
 
 
+def _update_ordered_ref(x: torch.Tensor, labels: torch.Tensor, k: int):
+    """K4's function in K4's summation order, in plain PyTorch (for tests
+    and the card's bit-for-bit check; the CPU route takes ``_segment_sums``).
+
+    The rows of cluster j in ascending row index, cut into pieces of
+    UPDATE_PIECE rows from its first row; each piece summed left to right
+    in f32 from +0.0; the piece sums of a cluster added in piece order from
+    +0.0; counts exact.  Labels outside [0, k) are dropped.  Missing rows of
+    short pieces add nothing: a sum from +0.0 is never -0.0, so skipping a
+    row and adding +0.0 agree.
+    """
+    size = UPDATE_PIECE
+    dev = x.device
+    lab = torch.where((labels >= 0) & (labels < k), labels.to(torch.int64), k)
+    perm = torch.sort(lab, stable=True).indices  # rows by (label, row)
+    n_j = torch.bincount(lab, minlength=k + 1)[:k]
+    start = torch.cumsum(n_j, 0) - n_j
+    npc = (n_j + size - 1) // size  # pieces of each cluster
+    poff = torch.cumsum(npc, 0) - npc
+    owner = torch.repeat_interleave(torch.arange(k, device=dev), npc)
+    q = torch.arange(owner.numel(), device=dev) - poff[owner]
+    pstart = start[owner] + q * size
+    plen = torch.clamp(n_j[owner] - q * size, max=size)
+    pieces = x.new_zeros((owner.numel(), x.shape[1]))
+    for o in range(size):  # vectorised over pieces, sequential within one
+        live = torch.nonzero(plen > o).flatten()
+        if live.numel() == 0:
+            break
+        pieces[live] = pieces[live] + x[perm[pstart[live] + o]]
+    sums = x.new_zeros((k, x.shape[1]))
+    for m in range(int(npc.max())):
+        live = torch.nonzero(npc > m).flatten()
+        sums[live] = sums[live] + pieces[poff[live] + m]
+    return sums, n_j.to(torch.float32)
+
+
 def _update_kernel(x: torch.Tensor, labels: torch.Tensor, k: int):
-    """Segment sums and counts by kernel K4 (``_update_ref``'s function),
-    D <= MAX_D.  A CPU tensor takes the plain version."""
+    """Segment sums and counts by kernel K4 (``_update_ref``'s function, in
+    ``_update_ordered_ref``'s order), D <= MAX_D.  A CPU tensor takes the
+    plain version."""
     _check_f32("x", x, 2)
     if labels.dtype != torch.int32 or tuple(labels.shape) != (x.shape[0],) \
             or not labels.is_contiguous():
@@ -357,17 +396,19 @@ def _update_kernel(x: torch.Tensor, labels: torch.Tensor, k: int):
     n, d = x.shape
     if d > MAX_D:
         raise ValueError(f"K4 takes D <= {MAX_D}, got {d}")
-    with torch.cuda.device(x.device):
-        nsplit, rps = _split(1, n, 1, d, k)
+    ints, floats = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    size_fn = _lib_fn("kmeans_update_scratch",
+                      [_I] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 2, "kmeans_update")
+    _raise_on(size_fn(n, d, k, ctypes.byref(ints), ctypes.byref(floats)),
+              "kmeans_update_scratch (K4)")
     sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty(k, dtype=torch.float32, device=x.device)
-    psums = torch.empty((nsplit, k, d), dtype=torch.float32, device=x.device)
-    pcounts = torch.empty((nsplit, k), dtype=torch.int32, device=x.device)
-    fn = _lib_fn("kmeans_update", [_P] * 6 + [_I] * 5 + [_P])
+    iscratch = torch.empty(ints.value, dtype=torch.int32, device=x.device)
+    fscratch = torch.empty(floats.value, dtype=torch.float32, device=x.device)
+    fn = _lib_fn("kmeans_update", [_P] * 6 + [_I] * 3 + [_P], "kmeans_update")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), labels.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-                 psums.data_ptr(), pcounts.data_ptr(), n, d, k, nsplit, rps,
-                 _stream(x))
+                 iscratch.data_ptr(), fscratch.data_ptr(), n, d, k, _stream(x))
     _raise_on(err, "kmeans_update (K4)")
     LAUNCHES["update"] += 1
     return sums, counts

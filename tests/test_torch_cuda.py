@@ -165,18 +165,42 @@ def test_assign_kernel_matches_plain_version(card):
     assert torch.equal(l1, km._assign_kernel(x[0], c[0]))
 
 
-def test_update_kernel_matches_plain_version(card):
-    r = np.random.default_rng(2)
-    x = torch.from_numpy(r.normal(0, 1, (7000, 24)).astype(np.float32)).to(card)
-    lab = torch.from_numpy(r.integers(-1, 301, 7000).astype(np.int32)).to(card)
+def _update_inputs(card, n, d, k, case, seed=2):
+    """Rows and labels for K4: uniform labels; "zero": every label 0 (one
+    cluster of n / 256 pieces), on nonnegative rows, since a sum of 1M
+    N(0, 1) values cancels to about 1e3 and the f32 order alone then moves
+    it by about 3e-3; "out_of_range": 5% of labels -1 or k; "empty": only
+    every third cluster is used."""
+    r = np.random.default_rng(seed)
+    x = r.normal(0, 1, (n, d)).astype(np.float32)
+    lab = r.integers(0, k, n).astype(np.int32)
+    if case == "zero":
+        x, lab = np.abs(x), np.zeros(n, np.int32)
+    elif case == "out_of_range":
+        lab[r.random(n) < 0.025] = -1
+        lab[r.random(n) < 0.025] = k
+    elif case == "empty":
+        lab = (3 * r.integers(0, -(-k // 3), n)).astype(np.int32)
+    return torch.from_numpy(x).to(card), torch.from_numpy(lab).to(card)
+
+
+@pytest.mark.parametrize("n,d,k,case", [
+    (1_048_576, 24, 4096, "uniform"), (65_536, 24, 1024, "uniform"), (3000, 3, 1, "uniform"),
+    (70_000, 104, 2100, "uniform"), (4096, 2048, 16, "uniform"), (1_048_576, 24, 4096, "zero"),
+    (200_000, 24, 300, "out_of_range"), (65_536, 24, 4096, "empty")])
+def test_update_kernel_matches_plain_version(card, n, d, k, case):
+    x, lab = _update_inputs(card, n, d, k, case)
     launches = km.LAUNCHES["update"]
-    s1, n1 = km._update_kernel(x, lab, 300)
+    s1, n1 = km._update_kernel(x, lab, k)
     torch.cuda.synchronize()
     assert km.LAUNCHES["update"] == launches + 1
-    s2, n2 = km._update_ref(x, lab, 300)
+    # the kernel's summation order, bit for bit
+    so, no = km._update_ordered_ref(x, lab, k)
+    assert torch.equal(s1, so) and torch.equal(n1, no)
+    s2, n2 = km._update_ref(x, lab, k)
     assert torch.equal(n1, n2)
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
-    s3, n3 = km._update_kernel(x, lab, 300)
+    s3, n3 = km._update_kernel(x, lab, k)
     assert torch.equal(s1, s3) and torch.equal(n1, n3)
 
 
@@ -218,6 +242,8 @@ def test_kmeans_kernels_at_any_width(card, d, k, p):
     s2, n2 = km._update_ref(x[0], lab, k)
     assert torch.equal(n1, n2)
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+    assert torch.equal(s1, km._update_ordered_ref(x[0], lab, k)[0])
+    assert torch.equal(s1, km._update_kernel(x[0], lab, k)[0])
 
 
 def test_public_kmeans_calls_launch_the_kernels_on_card(card):

@@ -111,6 +111,61 @@ def test_update_plain_matches_pallas():
                                np.asarray(cj), rtol=1e-5, atol=1e-5)
 
 
+def _update_case(n, d, k, case, seed):
+    r = np.random.default_rng(seed)
+    x = r.normal(0, 1, (n, d)).astype(np.float32)
+    if case == "zero":
+        return x, np.zeros(n, np.int32)
+    lab = r.integers(0, k, n).astype(np.int32)
+    if case == "out_of_range":
+        lab[r.random(n) < 0.05] = -1
+        lab[r.random(n) < 0.05] = k
+    return x, lab
+
+
+@pytest.mark.parametrize("n,d,k,case", [(1000, 9, 40, "out_of_range"), (3000, 3, 1, "uniform"),
+                                        (2000, 24, 37, "zero"), (700, 40, 300, "uniform")])
+def test_update_ordered_plain_matches_pallas(n, d, k, case):
+    """K4's summation order against the Pallas update kernel in interpret
+    mode: labels -1 and k dropped, one cluster of 8 pieces, wide rows."""
+    x, lab = _update_case(n, d, k, case, seed=n + d)
+    sj, nj = jkm._update_sums_pallas(jnp.asarray(x), jnp.asarray(lab), k, interpret=True)
+    sp, npt = km._update_ordered_ref(_t(x), _t(lab), k)
+    np.testing.assert_array_equal(npt.numpy(), np.asarray(nj))
+    np.testing.assert_allclose(sp.numpy(), np.asarray(sj), rtol=1e-5, atol=1e-5)
+
+
+def test_update_ordered_plain_pins_the_piece_order():
+    """1e8, 300 ones, -1e8 in cluster 0, rows of cluster 1 between them:
+    the cut after 256 rows of cluster 0 keeps 45 of the ones, which one
+    left-to-right sum loses entirely."""
+    vals = [1e8] + [1.0] * 300 + [-1e8]
+    x, lab = [], []
+    for i, v in enumerate(vals):
+        x.append(v)
+        lab.append(0)
+        if i % 7 == 0:
+            x.append(0.5)
+            lab.append(1)
+    x = np.array(x, np.float32)[:, None]
+    lab = np.array(lab, np.int32)
+    sums, counts = km._update_ordered_ref(_t(x), _t(lab), 2)
+
+    def seq(values):
+        acc = np.float32(0)
+        for v in values:
+            acc = np.float32(acc + np.float32(v))
+        return acc
+
+    first, rest = vals[:km.UPDATE_PIECE], vals[km.UPDATE_PIECE:]
+    by_hand = seq([seq(first), seq(rest)])
+    assert by_hand == np.float32(48.0)
+    assert sums[0, 0].numpy() == by_hand
+    assert seq(vals) != by_hand
+    assert sums[1, 0].numpy() == seq([0.5] * int(counts[1]))
+    np.testing.assert_array_equal(counts.numpy(), [len(vals), (lab == 1).sum()])
+
+
 def test_kmeans_recovers_clusters():
     r = np.random.default_rng(2)
     centers = np.array([[0, 0], [10, 0], [0, 10], [10, 10]], np.float32)
