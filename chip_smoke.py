@@ -4,9 +4,9 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit; TF32 off;
-  2. build: csrc/sor_window.cu (K1), csrc/kmeans.cu (K2, K3) and
-     csrc/kmeans_update.cu (K4), one nvcc each, all started together, with
-     ptxas's registers, shared memory, spills;
+  2. build: csrc/sor_window.cu (K1), csrc/kmeans.cu (K2's labels, K3)
+     and csrc/kmeans_update.cu (K4, also K2's sum stage), one nvcc each,
+     all started together, with ptxas's registers, shared memory, spills;
   3. K1 against its plain PyTorch version at two settings on the card
      (4,194,304 points at k=25, sigma=10.5: one pass, window 256, 7 steps;
      1,048,576 points at k=25, sigma=2.0: two passes, window 512, 10 steps):
@@ -19,20 +19,25 @@ Phases (any failure ends the run with a non-zero exit):
      and sor_intensity=4 on "cuda" and on "cpu": SOR must drop rows on both
      and the outputs must agree;
   5. K1 against its plain version on the input the main path gave it;
-  6. K2 (the fused Lloyd step) against its plain version at the SOG
-     palette's shapes for 3M splats (64 chunks of 65,536 rows, D=24, the
-     trailing chunks padding only) at k=1024 and k=64, bf16 and f32;
-     K3 (assign) and K4 (update) at N=1,048,576, D=24, K=4096; each with
-     its agreement, repeat-identity, times and bound; K4 also bit for bit
-     against its summation order in plain PyTorch, timed on a skewed input
-     (every label 0), and its kernels' device times by torch.profiler;
+  6. K2 (the Lloyd step: labels kernel, then K4 for the sums) against its
+     plain version at the SOG palette's shapes for 3M splats (64 chunks of
+     65,536 rows, D=24, the trailing chunks padding only) at k=1024 and
+     k=64, bf16 and f32: labels equal on every real row, sums and counts
+     bit for bit against its summation order in plain PyTorch, the share
+     of real rows the bf16 labels kernel re-checked (its own counter), and
+     its kernels' device times by torch.profiler; K3 (assign) and K4
+     (update) at N=1,048,576, D=24, K=4096; each with its agreement,
+     repeat-identity, times and bound; K4 also bit for bit against its
+     summation order in plain PyTorch, timed on a skewed input (every
+     label 0), and its kernels' device times by torch.profiler;
   7. the SOG path at full width: a 3M-splat, SH-degree-2 scene through
      Converter.run to .sog at compression levels 1 and 10 on the card, with
-     K2's launches, the writer's stage times, the palette fit's own time,
-     and the decoded file checked, its shN error within 1.02x of the same
-     fit through K2's plain version; then a 20k-splat scene to .sog on "cuda"
-     and on "cpu": all but the palette entries byte-identical, the palette's
-     reconstruction error within 1.25x of the CPU's.
+     K2's and K4's launches (11 each), the writer's stage times, the
+     palette fit's own time, and the decoded file checked, its shN error
+     within 1.02x of the same fit through K2's plain version; then a
+     20k-splat scene to .sog on "cuda" and on "cpu": all but the palette
+     entries byte-identical, the palette's reconstruction error within
+     1.25x of the CPU's.
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -443,8 +448,12 @@ def chunked_inputs(km, x, chunks, k):
 
 
 def compare_k2(km, xc, c, nv, precision):
-    """K2 against its plain version on one batched input."""
+    """K2 against its plain version on one batched input: labels, sums and
+    counts against ``_lloyd_ref``, and bit for bit against
+    ``_lloyd_ordered_ref`` (K4's summation order)."""
     s1, n1, l1 = km._lloyd_kernel(xc, c, nv, precision)
+    # rows the labels kernel re-checked, as its counter says
+    recheck_share = float(km.LAST_RECHECKED.sum()) / float(nv.sum())
     torch.cuda.synchronize()
     s2, n2, l2 = km._lloyd_ref(xc, c, nv, precision)
     torch.cuda.synchronize()
@@ -462,21 +471,37 @@ def compare_k2(km, xc, c, nv, precision):
     counts_equal = bool(torch.equal(n1[same], n2[same]))
     err = (s1 - s2)[same].abs()
     sums_close = bool(torch.isclose(s1, s2, rtol=1e-5, atol=1e-4)[same].all())
+    del s2, n2, l2
+    so, no, _ = km._lloyd_ordered_ref(xc, c, nv, precision)
+    ordered = bool(torch.equal(s1, so) and torch.equal(n1, no))
+    del so, no
     s3, n3, l3 = km._lloyd_kernel(xc, c, nv, precision)
     repeat = bool(torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3))
+    # as _fit calls it: x rounded to bf16 once per fit, not in every step
+    rounded = precision == "bf16"
+    xr = km._bf16(xc) if rounded else xc
+    s3, n3, l3 = km._lloyd_kernel(xr, c, nv, precision, rounded)
+    repeat &= bool(torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3))
+    del s3, n3, l3
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
     xb, ct = xc.to(dt), c.transpose(1, 2).to(dt)
     out = dict(precision=precision, chunks=chunks, rows=rows, d=d, k=k,
                label_agree=agree, counts_equal=counts_equal, sums_close=sums_close,
+               sums_ordered_equal=ordered, recheck_share=recheck_share,
                max_abs_err=float(err.max()), repeat_identical=repeat,
-               kernel_ms=cuda_ms(lambda: km._lloyd_kernel(xc, c, nv, precision), reps=5),
+               kernel_ms=cuda_ms(lambda: km._lloyd_kernel(xr, c, nv, precision, rounded),
+                                 reps=5),
+               # a call on unrounded x, which rounds it first
+               kernel_rounding_ms=cuda_ms(lambda: km._lloyd_kernel(xc, c, nv, precision),
+                                          reps=5),
+               device_split_us=device_split_us(
+                   lambda: km._lloyd_kernel(xr, c, nv, precision, rounded), reps=5),
                plain_ms=cuda_ms(lambda: km._lloyd_ref(xc, c, nv, precision), reps=1,
                                 warmup=0),
                matmul_ms=cuda_ms(lambda: torch.bmm(xb, ct), reps=3))
-    del xb, ct
+    del xb, ct, xr
     out["bound_ms"], out["bound_by"] = k2_bound_ms(chunks * rows, k, d, precision)
-    bar = 0.9999 if precision == "f32" else 0.999
-    if agree < bar or not counts_equal or not sums_close or not repeat:
+    if agree < 1.0 or not counts_equal or not sums_close or not ordered or not repeat:
         fail(f"K2 disagrees with its plain version: {json.dumps(out)}")
     return out
 
@@ -670,8 +695,9 @@ def phase_sog(km, smi):
                  stages_ms=sog_stage_times(buf.getvalue()),
                  check=check_sog_output(out, src_cloud, order, x, fit, plain))
         log(f"[sog] ply -> sog level {level} on {smi}: {json.dumps(r)}")
-        if launches["lloyd"] != 11:
-            fail(f"ply -> sog level {level} launched K2 {launches['lloyd']} times, not 11")
+        if launches["lloyd"] != 11 or launches["update"] != 11:
+            fail(f"ply -> sog level {level} launched K2 {launches['lloyd']} and K4 "
+                 f"{launches['update']} times, not 11 each")
         os.unlink(out)
         runs[level] = r
     os.unlink(src)
@@ -789,20 +815,24 @@ def main():
     kmeans_src = "gsconverter_tpu_torch/csrc/kmeans.cu"
     update_src = "gsconverter_tpu_torch/csrc/kmeans_update.cu"
     kernels += [{
-        "name": "K2 kmeans_lloyd",
+        "name": "K2 kmeans_lloyd (labels kernel, then K4 for the sums)",
         "route": "cuda",
         "source": kmeans_src,
+        "sources": [kmeans_src, update_src],  # labels; the sum stage
         "replaces": "gsconverter_tpu/ops/kmeans.py:264",
         "launches": sog_runs[SOG_LEVELS[0]]["launches"]["lloyd"],
         "launches_by_level": {lv: run["launches"]["lloyd"] for lv, run in sog_runs.items()},
         "max_abs_err": main_k2["max_abs_err"],
         "ms": main_k2["kernel_ms"],
-        "kernel_ms": main_k2["kernel_ms"],
+        "kernel_ms": main_k2["kernel_ms"],  # as _fit calls it, x rounded once a fit
+        "kernel_rounding_ms": main_k2["kernel_rounding_ms"],
         "plain_ms": main_k2["plain_ms"],
         "bound_ms": main_k2["bound_ms"],
         "bound_by": main_k2["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a Lloyd step
         "matmul_ms": main_k2["matmul_ms"],  # the distance product alone
+        "recheck_share": main_k2["recheck_share"],
+        "device_split_us": main_k2["device_split_us"],
         "shape": {key: main_k2[key] for key in ("chunks", "rows", "d", "k", "precision")},
         "settings": k2,
     }, {
@@ -826,7 +856,7 @@ def main():
         "route": "cuda",
         "source": update_src,
         "replaces": "gsconverter_tpu/ops/kmeans.py:165",
-        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["update"],  # not on the SOG path
+        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["update"],  # K2's sum stage
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["kernel_ms"],
         "kernel_ms": k4["kernel_ms"],
@@ -837,6 +867,10 @@ def main():
         "skew_ms": k4["skew_ms"],  # every label 0
         "ordered_equal": k4["ordered_equal"],
         "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
+        # on the main path K4 sums K2's segments: n = chunks * rows, k =
+        # chunks * k, held bit for bit there by K2's sums_ordered_equal
+        "main_path_shape": {"n": main_k2["chunks"] * main_k2["rows"], "d": main_k2["d"],
+                            "k": main_k2["chunks"] * main_k2["k"]},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -1,16 +1,23 @@
 """K-Means: k-means++ init, Lloyd steps, chunked palettes, assign, update.
 
 The JAX package's ``ops/kmeans.py`` on three Pallas TPU kernels, here on
-three hand-written CUDA kernels, K2 and K3 in ``csrc/kmeans.cu`` and K4 in
-``csrc/kmeans_update.cu``:
+hand-written CUDA kernels, K2's labels and K3 in ``csrc/kmeans.cu`` and K4
+in ``csrc/kmeans_update.cu``:
 
-  - K2, the fused Lloyd step (labels, segment sums and counts in one pass
-    over x), batched over independent chunks: ``_lloyd_kernel``;
+  - K2, the Lloyd step (labels, segment sums and counts), batched over
+    independent chunks: ``_lloyd_kernel``, two stages.  The labels kernel
+    forms them in bf16 mode on the tensor cores (``mma.sync``) and
+    re-checks exactly, by the FMA chain, every row below n_valid whose two
+    nearest centroids lie within ``_nearest``'s error bound of each other;
+    in f32 mode it runs the FMA chain on the CUDA cores.  It also writes
+    each row's segment (chunk * K + label, -1 at and above n_valid), and
+    K4 sums the segments: so the sums are in ``_lloyd_ordered_ref``'s
+    order, the same on every card;
   - K3, nearest-centroid labels for any K: ``_assign_kernel``;
   - K4, segment sums and counts of labelled rows, in a summation order
     fixed by the input alone (``_update_ordered_ref``): ``_update_kernel``.
 
-Each wrapper launches its kernel on a CUDA tensor and takes its plain
+Each wrapper launches its kernels on a CUDA tensor and takes its plain
 PyTorch version (``_lloyd_ref``, ``_assign_ref``, ``_update_ref``) on a CPU
 tensor.  The kernels take any K and rows of D <= 2048 values; a wider CUDA
 tensor raises.  Routes, as the JAX package's ``_resolve_impl`` picks them:
@@ -51,15 +58,17 @@ MAX_D = 2048  # widest rows the kernels take (csrc/kmeans.cu kMaxD)
 # ``precision`` holds up to these; beyond them K2 runs in f32, as the JAX
 # package's Lloyd step leaves its bf16 kernel for the f32 XLA route
 PRECISION_MAX_K, PRECISION_MAX_D = 2048, 128
-KERNEL_ROWS = 512  # most rows per x tile of csrc/kmeans.cu; a split holds a multiple
 UPDATE_PIECE = 256  # rows per piece of K4's summation order (csrc/kmeans_update.cu kPiece)
-_PARTIAL_FLOATS = 1 << 23  # bound on the [C, nsplit, K, D] partial sums
 _REF_ELEMS = 1 << 25  # bound on the plain versions' [C, rows, K] temporaries
 # k-means++ candidate pool when n_valid is given (JAX kmeans.py:381)
 _INIT_SUBSAMPLE = 65536
 
 #: launches of each kernel by its wrapper: K2 "lloyd", K3 "assign", K4 "update"
+#: (K2's sum stage also counts under "update")
 LAUNCHES = {"lloyd": 0, "assign": 0, "update": 0}
+#: rows of each chunk [C] (int32, on the card) that the last K2 launch
+#: re-checked by the exact FMA chain
+LAST_RECHECKED: torch.Tensor | None = None
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -87,20 +96,6 @@ def _check_device(*ts: torch.Tensor) -> str:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"K-Means kernels run on CUDA or CPU tensors, got {dev}")
     return dev.type
-
-
-def _split(rows: int, problems: int, d: int, k: int) -> tuple[int, int]:
-    """(nsplit, rows per split) for a K2 launch over ``problems`` chunks: as
-    many blocks in all as the card holds at once (one wave), each split a
-    multiple of KERNEL_ROWS rows, the partial sums within _PARTIAL_FLOATS."""
-    resident = ctypes.c_int(0)
-    fn = _lib_fn("kmeans_resident_blocks", [_I, _I, ctypes.POINTER(ctypes.c_int)])
-    _raise_on(fn(d, k, ctypes.byref(resident)), "kmeans_resident_blocks")
-    tiles = -(-rows // KERNEL_ROWS)
-    want = max(1, min(tiles, resident.value // problems,
-                      _PARTIAL_FLOATS // (problems * k * d)))
-    rps = -(-tiles // want) * KERNEL_ROWS
-    return -(-rows // rps), rps
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -216,12 +211,37 @@ def _lloyd_ref(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
     return sums, counts, torch.cat(labels, dim=1)
 
 
-def _lloyd_kernel(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
-                  precision: str = "bf16"):
-    """One Lloyd step of every chunk by kernel K2 (``_lloyd_ref``'s function).
+def _lloyd_ordered_ref(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
+                       precision: str = "bf16"):
+    """K2's function with K2's summation order, in plain PyTorch (for tests
+    and the card's bit-for-bit check).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (or raises).  Any K, D <= MAX_D.
+    The labels are ``_lloyd_ref``'s; the sums and counts are
+    ``_update_ordered_ref`` (K4's order) of the rows below n_valid, in f32
+    or bf16-rounded as ``precision`` says, with chunk * K + label as each
+    row's segment.
+    """
+    _, _, labels = _lloyd_ref(x, c, n_valid, precision)
+    cc, p, d = x.shape
+    k = c.shape[1]
+    xs = _bf16(x) if precision == "bf16" else x
+    real = torch.arange(p, device=x.device)[None, :] < n_valid.to(x.device).reshape(cc, 1)
+    base = (torch.arange(cc, device=x.device, dtype=torch.int32) * k)[:, None]
+    seg = torch.where(real, labels + base, -1).to(torch.int32).reshape(-1)
+    sums, counts = _update_ordered_ref(xs.reshape(cc * p, d), seg, cc * k)
+    return sums.view(cc, k, d), counts.view(cc, k), labels
+
+
+def _lloyd_kernel(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
+                  precision: str = "bf16", rounded: bool = False):
+    """One Lloyd step of every chunk by kernel K2 (``_lloyd_ref``'s function,
+    with the sums in ``_lloyd_ordered_ref``'s order).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K2's labels
+    kernel (``kmeans_lloyd_labels``), then K4 (``_update_kernel``) on its
+    segments as the sum stage (or raises).  ``rounded`` says that x already
+    holds bf16-rounded values, so bf16 mode skips its rounding pass.  Any
+    K, D <= MAX_D.
     """
     _check_precision(precision)
     _check_f32("x", x, 3)
@@ -239,31 +259,39 @@ def _lloyd_kernel(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
         return _lloyd_ref(x, c, n_valid, precision)
     if d > MAX_D:
         raise ValueError(f"K2 takes D <= {MAX_D}, got {d}")
-    with torch.cuda.device(x.device):
-        nsplit, rps = _split(p, cc, d, k)
+    bf16 = precision == "bf16"
     labels = torch.empty((cc, p), dtype=torch.int32, device=x.device)
-    sums = torch.empty((cc, k, d), dtype=torch.float32, device=x.device)
-    counts = torch.empty((cc, k), dtype=torch.float32, device=x.device)
-    psums = torch.empty((cc, nsplit, k, d), dtype=torch.float32, device=x.device)
-    pcounts = torch.empty((cc, nsplit, k), dtype=torch.int32, device=x.device)
-    fn = _lib_fn("kmeans_lloyd", [_P] * 8 + [_I] * 7 + [_P])
+    seg = torch.empty(cc * p, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(3 * cc * p, dtype=torch.int32, device=x.device)
+    amb_count = torch.empty(cc, dtype=torch.int32, device=x.device)
+    fn = _lib_fn("kmeans_lloyd_labels", [_P] * 7 + [_I] * 5 + [_P])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), c.data_ptr(), n_valid.data_ptr(), labels.data_ptr(),
-                 sums.data_ptr(), counts.data_ptr(), psums.data_ptr(),
-                 pcounts.data_ptr(), cc, p, d, k, nsplit, rps,
-                 int(precision == "bf16"), _stream(x))
-    _raise_on(err, "kmeans_lloyd (K2)")
+                 seg.data_ptr(), scratch.data_ptr(), amb_count.data_ptr(), cc, p, d, k,
+                 int(bf16), _stream(x))
+    _raise_on(err, "kmeans_lloyd_labels (K2)")
     LAUNCHES["lloyd"] += 1
-    return sums, counts, labels
+    global LAST_RECHECKED
+    LAST_RECHECKED = amb_count
+    xs = _bf16(x) if bf16 and not rounded else x
+    sums, counts = _update_kernel(xs.view(cc * p, d), seg, cc * k)
+    return sums.view(cc, k, d), counts.view(cc, k), labels
 
 
-def _lloyd(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor, precision: str):
+def _lloyd_precision(x: torch.Tensor, c: torch.Tensor, precision: str) -> str:
+    """K2's mode for x [C, P, D] and c [C, K, D]: f32 beyond the bf16 range."""
+    if c.shape[1] > PRECISION_MAX_K or x.shape[2] > PRECISION_MAX_D:
+        return "f32"
+    return precision
+
+
+def _lloyd(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor, precision: str,
+           rounded: bool = False):
     """Route one batched Lloyd step (see the module's table)."""
     if x.device.type == "cpu":
         return _lloyd_ref(x, c, n_valid, "f32")
-    if c.shape[1] > PRECISION_MAX_K or x.shape[2] > PRECISION_MAX_D:
-        precision = "f32"
-    return _lloyd_kernel(x.contiguous(), c.contiguous(), n_valid, precision)
+    return _lloyd_kernel(x.contiguous(), c.contiguous(), n_valid,
+                         _lloyd_precision(x, c, precision), rounded)
 
 
 def _n_valid(n_valid, device) -> torch.Tensor:
@@ -527,12 +555,16 @@ def _as_points(data, device) -> torch.Tensor:
 def _fit(xc: torch.Tensor, nv: torch.Tensor, init: torch.Tensor, iters: int,
          precision: str):
     """``iters`` Lloyd steps on [C, P, D] from ``init``, then the final labels
-    against the final centroids (one more pass)."""
+    against the final centroids (one more pass).  On the card in bf16 mode
+    x is rounded once here, not in every step: the rounding is idempotent."""
+    rounded = xc.device.type == "cuda" and _lloyd_precision(xc, init, precision) == "bf16"
+    if rounded:
+        xc = _bf16(xc)
     c = init
     for _ in range(iters):
-        sums, counts, _ = _lloyd(xc, c, nv, precision)
+        sums, counts, _ = _lloyd(xc, c, nv, precision, rounded)
         c = _centroid_means(sums, counts, c)
-    _, _, labels = _lloyd(xc, c, nv, precision)
+    _, _, labels = _lloyd(xc, c, nv, precision, rounded)
     return c, labels
 
 

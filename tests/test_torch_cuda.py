@@ -126,33 +126,83 @@ def _kmeans_inputs(card, chunks=3, p=4096, d=24, k=130, seed=0, grid=True):
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("k", [130, 1024])
-def test_lloyd_kernel_matches_plain_version(card, precision, k):
-    x, c, nv = _kmeans_inputs(card, k=k)
-    launches = km.LAUNCHES["lloyd"]
+@pytest.mark.parametrize("k,d", [(130, 24), (1024, 24), (64, 24), (130, 45)])
+def test_lloyd_kernel_matches_plain_version(card, precision, k, d):
+    x, c, nv = _kmeans_inputs(card, k=k, d=d)
+    launches = dict(km.LAUNCHES)
     s1, n1, l1 = km._lloyd_kernel(x, c, nv, precision)
     torch.cuda.synchronize()
-    assert km.LAUNCHES["lloyd"] == launches + 1
+    # the labels kernel, then K4 as the sum stage
+    assert km.LAUNCHES["lloyd"] == launches["lloyd"] + 1
+    assert km.LAUNCHES["update"] == launches["update"] + 1
     s2, n2, l2 = km._lloyd_ref(x, c, nv, precision)
     real = torch.arange(x.shape[1], device=card)[None, :] < nv[:, None]
     # the plain version forms every distance as the kernel does
     assert float((l1 == l2)[real].float().mean()) == 1.0
     assert torch.equal(n1, n2)
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-4)
+    # K4's summation order, bit for bit
+    so, no, _ = km._lloyd_ordered_ref(x, c, nv, precision)
+    assert torch.equal(s1, so) and torch.equal(n1, no)
     # two launches: bit-identical
     s3, n3, l3 = km._lloyd_kernel(x, c, nv, precision)
     assert torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(l1, l3)
 
 
-def test_kernels_resolve_exact_ties_to_the_lowest_index(card):
-    x, c, nv = _kmeans_inputs(card, chunks=1, p=2048, k=600)
-    # duplicates in other tiles and rows sitting on them
+def _grid_inputs(card, p, d, k, seed):
+    """One chunk of u8-grid rows exactly representable in bf16 ((q - 128) /
+    512), so distances between them are exact in f32 and ties are exact
+    ties in every mode, and centroids drawn from the rows."""
+    r = np.random.default_rng(seed)
+    x = ((r.integers(0, 256, (1, p, d)) - 128) / 512.0).astype(np.float32)
+    c = x[:, r.choice(p, k, replace=False)].copy()
+    return torch.from_numpy(x).to(card), torch.from_numpy(c).to(card)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,k", [(24, 600), (128, 1000)])
+def test_kernels_resolve_exact_ties_to_the_lowest_index(card, precision, d, k):
+    """Duplicated centroids in other 8-wide n-tiles and (at D = 128) other
+    shared-memory tiles, rows sitting on them, and rows on the midpoint of
+    two centroids of the grid."""
+    x, c = _grid_inputs(card, 2048, d, k, seed=d)
+    nv = torch.tensor([2048], dtype=torch.int32, device=card)
     c[0, 300] = c[0, 5]
-    c[0, 550] = c[0, 260]
+    c[0, k - 50] = c[0, 260]
     x[0, :50] = c[0, 5]
     x[0, 50:100] = c[0, 260]
-    for lab in (km._lloyd_kernel(x, c, nv, "f32")[2][0], km._assign_kernel(x[0], c[0])):
-        assert bool((lab[:50] == 5).all()) and bool((lab[50:100] == 260).all())
+    # midpoints of (j, j + 1): the pair's grid values are made even apart
+    for i, j in enumerate(range(10, 10 + 8 * 40, 8)):
+        c[0, j + 1] = c[0, j] + 2.0 / 512.0 * ((i % 3) - 1)
+        x[0, 100 + i] = (c[0, j] + c[0, j + 1]) / 2
+    lab = km._lloyd_kernel(x, c, nv, precision)[2][0]
+    assert bool((lab[:50] == 5).all()) and bool((lab[50:100] == 260).all())
+    assert torch.equal(lab, km._lloyd_ref(x, c, nv, precision)[2][0])
+    if precision == "f32":
+        assign = km._assign_kernel(x[0], c[0])
+        assert bool((assign[:50] == 5).all()) and bool((assign[50:100] == 260).all())
+
+
+def test_lloyd_kernel_at_the_sog_palette_shape(card):
+    """64 chunks of 65,536 u8-grid rows, 3M of them real: chunk 45 partial,
+    chunks 46-63 PAD_POS only (their rows are not re-checked), k = 1024 in
+    bf16, against K2's function in K4's order."""
+    r = np.random.default_rng(9)
+    n, chunks, p, d, k = 3_000_000, 64, 65_536, 24, 1024
+    rows = ((r.integers(0, 256, (n, d), dtype=np.int32) - 128) / 512.0).astype(np.float32)
+    x = pad_rows(torch.from_numpy(rows).to(card), chunks * p, PAD_POS).view(chunks, p, d)
+    del rows
+    nv = torch.clamp(n - torch.arange(chunks, device=card) * p, 0, p).to(torch.int32)
+    valid = torch.arange(p, device=card)[None, :] < nv[:, None]
+    c = km.init_centroids(x, k, 100, valid=valid)
+    s1, n1, l1 = km._lloyd_kernel(x, c, nv, "bf16")
+    rechecked = km.LAST_RECHECKED.cpu()
+    so, no, lo = km._lloyd_ordered_ref(x, c, nv, "bf16")
+    assert torch.equal(l1[valid], lo[valid])
+    assert bool(torch.isfinite(s1).all())
+    assert torch.equal(s1, so) and torch.equal(n1, no)
+    assert int(rechecked[46:].sum()) == 0
+    assert int(rechecked.sum()) <= 0.05 * n
 
 
 def test_assign_kernel_matches_plain_version(card):
@@ -248,7 +298,8 @@ def test_kmeans_kernels_at_any_width(card, d, k, p):
 
 def test_public_kmeans_calls_launch_the_kernels_on_card(card):
     """lloyd_step beyond the bf16 range runs K2 in f32 (the JAX package's
-    f32 route there); assign and update launch K3 and K4 at any width."""
+    f32 route there), K4 as its sum stage; assign and update launch K3 and
+    K4 at any width."""
     x, c, _ = _kmeans_inputs(card, chunks=1, p=4608, d=24, k=2100)
     before = dict(km.LAUNCHES)
     s1, n1, l1 = km.lloyd_step(x[0], c[0], 2100)
@@ -260,7 +311,8 @@ def test_public_kmeans_calls_launch_the_kernels_on_card(card):
     km.update(wide, lab, 40, wide[:40])
     assert km.LAUNCHES["lloyd"] == before["lloyd"] + 1
     assert km.LAUNCHES["assign"] == before["assign"] + 1
-    assert km.LAUNCHES["update"] == before["update"] + 1
+    # K4 twice: the sum stage of K2, then update
+    assert km.LAUNCHES["update"] == before["update"] + 2
 
 
 def test_sog_written_twice_on_card_is_byte_identical(card, tmp_path):

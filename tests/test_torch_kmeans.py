@@ -62,6 +62,62 @@ def test_lloyd_plain_matches_pallas_bf16():
     assert n.sum() == 2000
 
 
+def _chunks(p, d, k, seed):
+    """Two chunks of p rows and centroids drawn from each chunk's rows."""
+    r = np.random.default_rng(seed)
+    x = r.normal(0, 1, (2, p, d)).astype(np.float32)
+    c = np.stack([x[i, r.choice(p, k, replace=False)] for i in range(2)])
+    return x, c
+
+
+@pytest.mark.parametrize("precision,d,k,nv", [
+    ("f32", 24, 130, (900, 850)), ("f32", 45, 61, (700, 0)),
+    ("bf16", 24, 130, (900, 850)), ("bf16", 45, 61, (700, 0))])
+def test_lloyd_ordered_plain_matches_pallas(precision, d, k, nv):
+    """K2's function in K4's summation order against the Pallas Lloyd step
+    in interpret mode, chunk by chunk: a partial chunk, an empty one
+    (n_valid = 0), k not a multiple of 8, D = 24 and 45."""
+    p = nv[0]
+    x, c = _chunks(p, d, k, seed=d + k)
+    s, n, lab = km._lloyd_ordered_ref(_t(x), _t(c), torch.tensor(nv, dtype=torch.int32),
+                                      precision)
+    s, n, lab = s.numpy(), n.numpy(), lab.numpy()
+    for i, nvi in enumerate(nv):
+        sj, nj, lj = (np.asarray(a) for a in jkm.lloyd_step(
+            jnp.asarray(x[i]), jnp.asarray(c[i]), k, n_valid=jnp.int32(nvi),
+            impl="pallas_interpret", precision=precision))
+        assert n[i].sum() == nvi
+        if precision == "f32":
+            np.testing.assert_array_equal(lj[:nvi], lab[i, :nvi])
+            np.testing.assert_array_equal(nj, n[i])
+            np.testing.assert_allclose(s[i], sj, rtol=1e-5, atol=1e-4)
+        else:
+            if nvi:
+                agree = float((lj[:nvi] == lab[i, :nvi]).mean())
+                assert agree >= 0.995, agree
+            # the sums are sums of the bf16-rounded rows of each label
+            xb = km._bf16(_t(x[i, :nvi])).numpy().astype(np.float64)
+            want = np.zeros((k, d))
+            np.add.at(want, lab[i, :nvi], xb)
+            np.testing.assert_allclose(s[i], want, rtol=1e-5, atol=1e-4)
+            np.testing.assert_array_equal(n[i], np.bincount(lab[i, :nvi], minlength=k))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_lloyd_ordered_sums_are_k4_order_bit_for_bit(precision):
+    x, c = _chunks(600, 24, 40, seed=21)
+    nv = np.array([600, 333], np.int32)
+    s, n, lab = km._lloyd_ordered_ref(_t(x), _t(c), _t(nv), precision)
+    # K4's segments by hand: chunk * k + label below n_valid, -1 above it
+    seg = lab.numpy() + 40 * np.arange(2, dtype=np.int32)[:, None]
+    seg[np.arange(600)[None, :] >= nv[:, None]] = -1
+    xs = km._bf16(_t(x)) if precision == "bf16" else _t(x)
+    so, no = km._update_ordered_ref(xs.reshape(-1, 24), _t(seg.reshape(-1)), 80)
+    assert torch.equal(s.reshape(80, 24), so) and torch.equal(n.reshape(80), no)
+    # the labels are the plain version's
+    assert torch.equal(lab, km._lloyd_ref(_t(x), _t(c), _t(nv), precision)[2])
+
+
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 def test_lloyd_step_cpu_route_matches_xla(precision):
     # the CPU route is f32 whatever the precision, as JAX's
