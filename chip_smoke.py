@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit):
   3. K1 against its plain PyTorch version at two settings on the card
      (4,194,304 points at k=25, sigma=10.5: one pass, window 256, 7 steps;
      1,048,576 points at k=25, sigma=2.0: two passes, window 512, 10 steps):
-     md and the full SOR mask, with times;
+     md and the full SOR mask, with times and the share of rows equal bit
+     for bit; then md alone at window 64 (the kernel's generic
+     instantiation, which no sor_mask setting takes);
   4. the main path at full size: a 1M-splat 3DGS PLY through convert() to
      .splat and to 3DGS PLY with the filters bbox, min_opacity=5,
      density_sensitivity=0.5 and sor_intensity=4 on device="cuda", with its
@@ -84,6 +86,8 @@ SOR_FLAGS = dict(bbox=BBOX, min_opacity=5, sor_intensity=4)
 INNER_FLYERS = 10
 # (points, k, sigma) of phase 3, and the main path's scene size
 K1_SETTINGS = ((4_194_304, 25, 10.5), (1_048_576, 25, 2.0))
+# (points, k, window, iters) of phase 3's generic-window check
+K1_GENERIC = (1_048_576, 25, 64, 7)
 MAIN_N = 1_000_000
 # the SOG palette at 3M splats: 64 chunks of 65,536 rows of 24 shN values;
 # k per chunk 1024 at level 1, 64 at level 10
@@ -264,7 +268,12 @@ def phase_k1_settings(sor):
             fail(f"sor_mask kept {kept} of N(0, 3) points")
         results.append(r)
         del pos, mask_k, mask_p
-    return results
+    n, k, window, iters = K1_GENERIC
+    pos = torch.from_numpy(rng.normal(0, 3.0, (n, 3)).astype(np.float32)).to(DEVICE)
+    generic = compare_k1(sor, first_pass_input(sor, pos), k, window, iters)
+    generic.update(n=n, k=k, window=window, iters=iters)
+    log(f"[k1] generic window: {json.dumps(generic)}")
+    return results, generic
 
 
 def mint_scene(path, n, seed=0, flyers=0.002, inner=0):
@@ -773,7 +782,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     t_all = time.perf_counter()
     # 3. K1 at the SOR bench's settings
-    settings = phase_k1_settings(sor)
+    settings, generic = phase_k1_settings(sor)
     # 4. the main path
     runs, (spos, k, window, iters) = phase_main_path(sor, smi)
     small_same = phase_small_agreement(sor)
@@ -807,8 +816,10 @@ def main():
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
+        "frac_exact": r["frac_exact"],
         "main_path_shape": {"n": r["n"], "k": k, "window": window, "iters": iters},
         "settings": settings,
+        "generic_window": generic,
     }]
     # K2's main path: level 1 of the SOG path (bf16, k=1024)
     main_k2 = next(x for x in k2 if x["k"] == K2_KS[0] and x["precision"] == "bf16")

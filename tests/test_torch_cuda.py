@@ -44,14 +44,22 @@ def _sorted_padded(pos, device, size=4096):
     return posp[torch.sort(key, stable=True).indices].contiguous()
 
 
-@pytest.mark.parametrize("k,window,iters", [(25, 512, 10), (23, 256, 7), (50, 128, 7)])
-def test_kernel_matches_plain_version(card, k, window, iters):
-    spos = _sorted_padded(_flyer_scene(), card)
+def _kernel_and_plain(spos, k, window, iters):
+    """K1 on the card (one launch counted) and its plain version."""
     launches = sor.KERNEL_LAUNCHES
     md_k = sor._sor_window_loop_kernel(spos, k, window, iters)
     torch.cuda.synchronize()
     assert sor.KERNEL_LAUNCHES == launches + 1
-    md_p = sor._sor_window_loop_ref(spos, k, window, iters)
+    return md_k, sor._sor_window_loop_ref(spos, k, window, iters)
+
+
+# every specialisation of the kernel (window 128, 256, 512) and its generic
+# instantiation (any window up to 64, here 64 and 16)
+@pytest.mark.parametrize("k,window,iters", [(25, 512, 10), (23, 256, 7), (50, 128, 7),
+                                            (25, 64, 7), (7, 16, 5)])
+def test_kernel_matches_plain_version(card, k, window, iters):
+    spos = _sorted_padded(_flyer_scene(), card)
+    md_k, md_p = _kernel_and_plain(spos, k, window, iters)
     real = spos[:, 0] < sor._D_VALID_MAX
     assert int(real.sum()) == 3000
     rel = ((md_k - md_p).abs() / md_p.clamp_min(1e-12))[real]
@@ -59,6 +67,51 @@ def test_kernel_matches_plain_version(card, k, window, iters):
     # taken in another order
     assert float(rel.max()) <= 1e-5, float(rel.max())
     assert bool(torch.isfinite(md_k[real]).all())
+
+
+@pytest.mark.parametrize("window", [256, 64])
+def test_kernel_with_fewer_than_k_candidates(card, window):
+    """20 real rows in a block of 1024: every real row has 19 valid
+    candidates, fewer than k, and takes the fill at the largest distance;
+    pad rows have none and write 0."""
+    pos = np.random.default_rng(11).normal(0, 1.0, (20, 3)).astype(np.float32)
+    spos = _sorted_padded(pos, card, size=1024)
+    md_k, md_p = _kernel_and_plain(spos, 23, window, 7)
+    real = spos[:, 0] < sor._D_VALID_MAX
+    assert int(real.sum()) == 20
+    assert bool(torch.isfinite(md_k).all())
+    rel = ((md_k - md_p).abs() / md_p.clamp_min(1e-12))[real]
+    assert float(rel.max()) <= 1e-5, float(rel.max())
+    # no sum on a pad row: bit for bit
+    assert torch.equal(md_k[~real], md_p[~real])
+    assert bool((md_k[~real] == 0).all())
+
+
+@pytest.mark.parametrize("window", [512, 256, 128, 64])
+def test_kernel_with_duplicate_points(card, window):
+    """300 distinct points, each repeated ten times and a few repeated
+    within 1e-7: those pairs are at d <= 1e-6 and are no neighbours."""
+    r = np.random.default_rng(12)
+    base = r.normal(0, 1.0, (300, 3)).astype(np.float32)
+    pos = np.repeat(base, 10, axis=0)
+    pos[::7] += np.float32(1e-7)
+    spos = _sorted_padded(pos, card)
+    md_k, md_p = _kernel_and_plain(spos, 25, window, 7)
+    real = spos[:, 0] < sor._D_VALID_MAX
+    assert bool(torch.isfinite(md_k[real]).all())
+    rel = ((md_k - md_p).abs() / md_p.clamp_min(1e-12))[real]
+    assert float(rel.max()) <= 1e-5, float(rel.max())
+
+
+@pytest.mark.parametrize("window,iters", [(256, 0), (64, 0), (512, 7), (16, 3)])
+def test_kernel_at_k1(card, window, iters):
+    """k = 1: count(d <= lo) < 1 keeps lo's sum empty, so md is 0.5 (lo +
+    hi) with no sum taken at all, and must be equal bit for bit."""
+    spos = _sorted_padded(_flyer_scene(), card)
+    md_k, md_p = _kernel_and_plain(spos, 1, window, iters)
+    real = spos[:, 0] < sor._D_VALID_MAX
+    assert bool(torch.isfinite(md_k[real]).all())
+    assert torch.equal(md_k, md_p)
 
 
 def test_kernel_rejects_what_it_does_not_take(card):

@@ -34,7 +34,8 @@ def _sorted_padded(pos, size=4096):
     return np.array(spos), np.array(svalid)
 
 
-@pytest.mark.parametrize("k,window,iters", [(25, 512, 10), (23, 256, 7)])
+@pytest.mark.parametrize("k,window,iters", [(25, 512, 10), (23, 256, 7), (50, 128, 7),
+                                            (25, 64, 7)])
 def test_kernel_plain_version_matches_pallas(k, window, iters):
     spos, real = _sorted_padded(_flyer_scene())
     md_j = np.asarray(
@@ -48,6 +49,36 @@ def test_kernel_plain_version_matches_pallas(k, window, iters):
     # one bf16 tie flipping a bisection step.
     assert np.quantile(rel, 0.99) <= 1e-4, np.quantile(rel, 0.99)
     assert rel.max() <= 5e-3, rel.max()
+
+
+def _compare_thresholds(seed=8, count=400):
+    """Finite f32 thresholds >= 0, as the kernel's bisection midpoints are:
+    0, the largest finite f32, bf16-exact values and one f32 ulp either side
+    of them, and random values over the whole exponent range."""
+    r = np.random.default_rng(seed)
+    exact = (r.integers(0, 0x7F80, count // 4, dtype=np.uint32) << 16).view(np.float32)
+    up = np.nextafter(exact, np.float32(np.inf))
+    down = np.nextafter(exact, np.float32(0))
+    rand = r.integers(0, 0x7F800000, count // 4, dtype=np.uint32).view(np.float32)
+    t = np.concatenate([[0.0, np.finfo(np.float32).max], exact, up, down, rand])
+    return t.astype(np.float32)
+
+
+def test_bisection_compare_on_bf16_bits_is_exact():
+    """Kernel K1 counts v <= mid, v a non-negative bf16 or +inf and mid a
+    finite f32 >= 0, as bits16(v) <= bits32(mid) >> 16, i.e. as a bf16
+    compare of v with mid truncated to bf16.  Both must equal the f32
+    compare for every bf16 pattern 0x0000-0x7F80 (0 to +inf)."""
+    bits = np.arange(0, 0x7F81, dtype=np.uint32)
+    v = (bits << 16).view(np.float32)
+    assert np.isinf(v[-1]) and not np.isnan(v).any()
+    vb = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16)
+    for t in _compare_thresholds():
+        tbits = np.array([t], np.float32).view(np.uint32)[0]
+        want = v <= t
+        np.testing.assert_array_equal(bits <= (tbits >> 16), want)
+        tb = torch.tensor([np.int16(tbits >> 16)]).view(torch.bfloat16)
+        np.testing.assert_array_equal((vb <= tb).numpy(), want)
 
 
 def test_kernel_wrapper_checks_its_arguments():
