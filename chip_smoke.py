@@ -29,9 +29,13 @@ Phases (any failure ends the run with a non-zero exit):
      of real rows the bf16 labels kernel re-checked (its own counter), and
      its kernels' device times by torch.profiler; K3 (assign) and K4
      (update) at N=1,048,576, D=24, K=4096; each with its agreement,
-     repeat-identity, times and bound; K4 also bit for bit against its
-     summation order in plain PyTorch, timed on a skewed input (every
-     label 0), and its kernels' device times by torch.profiler;
+     repeat-identity, times and bound; K3's labels equal to its plain
+     version's and its route's plain spec's on every row, also on a u8
+     grid with exact ties (262,144 x 24, K=600), with the share of rows it
+     re-checked and its kernels' device times by torch.profiler; K4 also
+     bit for bit against its summation order in plain PyTorch, timed on a
+     skewed input (every label 0), and its kernels' device times by
+     torch.profiler;
   7. the SOG path at full width: a 3M-splat, SH-degree-2 scene through
      Converter.run to .sog at compression levels 1 and 10 on the card, with
      K2's and K4's launches (11 each), the writer's stage times, the
@@ -94,6 +98,8 @@ MAIN_N = 1_000_000
 SOG_N, SOG_D, SOG_LEVELS, SOG_CHUNKS = 3_000_000, 24, (1, 10), 64
 K2_KS = (1024, 64)
 K34_N, K34_D, K34_K = 1_048_576, 24, 4096
+# (rows, centroids) of K3's u8-grid case with exact ties, at D = K34_D
+K3_GRID = (262_144, 600)
 SMALL_SOG_N = 20_000
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -176,9 +182,12 @@ def k2_bound_ms(rows, k, d, precision):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k3_bound_ms(n, k, d):
-    """K3: the f32 distance products or x, the centroids and the labels."""
-    t_ops = 2.0 * n * k * d / PEAK_FLOPS["f32"]
+def k3_bound_ms(n, k, d, precision="bf16"):
+    """K3: the distance products (2 n k d operations) or x, the centroids
+    and the labels.  With the exact re-check of rows in doubt no product
+    needs the FP32 pipe, so the products count at the bf16 tensor peak;
+    ``precision="f32"`` gives the FP32 figure of the chain alone."""
+    t_ops = 2.0 * n * k * d / PEAK_FLOPS[precision]
     t_bytes = (n * d * 4 + k * d * 4 + n * 4) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -529,27 +538,59 @@ def phase_k2(km):
     return results
 
 
+def compare_k3(km, x, c):
+    """K3 against its plain version and its route's plain spec on one
+    input: labels equal on every row, repeat-identity, the share of rows
+    re-checked (the kernel's counter, and the spec's)."""
+    l1 = km._assign_kernel(x, c)
+    listed = int(km.LAST_ASSIGN_RECHECKED)
+    torch.cuda.synchronize()
+    l2 = km._assign_ref(x, c)
+    spec, spec_listed = km._assign_split_ref(x, c)
+    n = x.shape[0]
+    # where labels differ, how far apart the two chosen distances are
+    dist = lambda lab: ((x - c[lab.long()]) ** 2).sum(1)  # noqa: E731
+    out = dict(n=n, d=x.shape[1], k=c.shape[0],
+               label_agree=float((l1 == l2).float().mean()),
+               spec_equal=bool(torch.equal(l1, spec)),
+               max_abs_err=float((dist(l1) - dist(l2)).abs().max()),
+               repeat_identical=bool(torch.equal(l1, km._assign_kernel(x, c))),
+               recheck_share=listed / n, spec_recheck_share=spec_listed / n)
+    return out, l1
+
+
 def phase_k3_k4(km):
-    """K3 and K4 at K34_N points, K34_D dims, K34_K centroids."""
+    """K3 and K4 at K34_N points, K34_D dims, K34_K centroids; K3 also on a
+    u8 grid with exact ties."""
     rr = np.random.default_rng(6)
     x = torch.from_numpy(rr.normal(0, 1, (K34_N, K34_D)).astype(np.float32)).to(DEVICE)
     c = x[torch.from_numpy(rr.choice(K34_N, K34_K, replace=False)).to(DEVICE)].contiguous()
-    l1 = km._assign_kernel(x, c)
-    torch.cuda.synchronize()
-    l2 = km._assign_ref(x, c)
-    agree = float((l1 == l2).float().mean())
-    # where labels differ, how far apart the two chosen distances are
-    dist = lambda lab: ((x - c[lab.long()]) ** 2).sum(1)  # noqa: E731
-    k3 = dict(n=K34_N, d=K34_D, k=K34_K, label_agree=agree,
-              max_abs_err=float((dist(l1) - dist(l2)).abs().max()),
-              repeat_identical=bool(torch.equal(l1, km._assign_kernel(x, c))),
-              kernel_ms=cuda_ms(lambda: km._assign_kernel(x, c), reps=5),
+    k3, l1 = compare_k3(km, x, c)
+    k3.update(kernel_ms=cuda_ms(lambda: km._assign_kernel(x, c), reps=5),
+              device_split_us=device_split_us(lambda: km._assign_kernel(x, c), reps=5),
               plain_ms=cuda_ms(lambda: km._assign_ref(x, c), reps=1, warmup=0),
               matmul_ms=cuda_ms(lambda: x @ c.T, reps=3))
     k3["bound_ms"], k3["bound_by"] = k3_bound_ms(K34_N, K34_K, K34_D)
+    k3["fp32_bound_ms"] = k3_bound_ms(K34_N, K34_K, K34_D, "f32")[0]
+    # SOG's dequantized u8 grid, centroids duplicated in other tiles and
+    # rows sitting on them: exact ties, the lower index must win
+    g = (np.float32(-1.57) + np.float32(0.0123)
+         * rr.integers(0, 256, (K3_GRID[0], K34_D))).astype(np.float32)
+    gc = g[rr.choice(K3_GRID[0], K3_GRID[1], replace=False)].copy()
+    gc[300], gc[550] = gc[5], gc[260]
+    g[:1000], g[1000:2000] = gc[5], gc[260]
+    gx, gc = torch.from_numpy(g).to(DEVICE), torch.from_numpy(gc).to(DEVICE)
+    ties, gl = compare_k3(km, gx, gc)
+    ties["ties_to_lowest"] = bool((gl[:1000] == 5).all() and (gl[1000:2000] == 260).all())
+    ties["kernel_ms"] = cuda_ms(lambda: km._assign_kernel(gx, gc), reps=5)
+    k3["grid_ties"] = ties
     log(f"[k3] {json.dumps(k3)}")
-    if agree < 0.9999 or not k3["repeat_identical"]:
-        fail(f"K3 disagrees with its plain version: {json.dumps(k3)}")
+    for r in (k3, ties):
+        if r["label_agree"] < 1.0 or not r["spec_equal"] or not r["repeat_identical"]:
+            fail(f"K3 disagrees with its plain version: {json.dumps(k3)}")
+    if not ties["ties_to_lowest"]:
+        fail(f"K3 broke an exact tie to a higher index: {json.dumps(ties)}")
+    del gx, gc, gl
     s1, n1 = km._update_kernel(x, l1, K34_K)
     torch.cuda.synchronize()
     s2, n2 = km._update_ref(x, l1, K34_K)
@@ -858,10 +899,14 @@ def main():
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
+        "fp32_bound_ms": k3["fp32_bound_ms"],  # the products at the FP32 peak
         "library_ms": None,  # no single PyTorch call computes an argmin assign
         "matmul_ms": k3["matmul_ms"],  # the distance product alone
+        "recheck_share": k3["recheck_share"],
+        "device_split_us": k3["device_split_us"],
         "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
         "label_agree": k3["label_agree"],
+        "grid_ties": k3["grid_ties"],
     }, {
         "name": "K4 kmeans_update",
         "route": "cuda",

@@ -19,8 +19,8 @@
 //   sums and counts are bit-identical from launch to launch and from card
 //   to card.  Nothing here reads the SM count or asks for occupancy.
 //
-// Two label passes:
-//   - bf16 mode, D <= 128 (the JAX package's bf16 kernel range): the
+// Label passes:
+//   - K2, bf16 mode, D <= 128 (the JAX package's bf16 kernel range): the
 //     tensor cores.  lloyd_labels_tc_kernel: 8 warps, each owning an
 //     m-tile of 16 rows as bf16 A fragments in registers (two m-tiles a
 //     warp, with more registers and fewer warps in flight, ran slower); the chunk's
@@ -40,14 +40,64 @@
 //     argmin keeping the lower index.  Rows at and above n_valid (SOG's
 //     PAD_POS rows, whole chunks of them at 3M splats) are not re-checked,
 //     as _nearest(exact_rows=real) does not re-check them.
-//   - f32 mode (k > 2048 or D > 128 on the lloyd_step route), and bf16
-//     mode above D = 128: nearest_pass_kernel, the CUDA-core FMA chain
-//     itself (exact, so no re-check), which K3 also runs.
+//   - K3, D <= 128: the tensor cores on the f32 values split into two bf16
+//     terms each (assign_pack_kernel, assign_labels_tc_kernel, then
+//     assign_recheck_kernel for the listed rows; the split and its bound
+//     below).
+//   - K2 in f32 mode (k > 2048 or D > 128 on the lloyd_step route), K2 in
+//     bf16 mode above D = 128, and K3 above D = 128: nearest_pass_kernel,
+//     the CUDA-core FMA chain itself (exact, so no re-check).
 //
-// What bounds it here.  The tensor-core pass does 2 rows k D bf16
+// K3's split product and its error bound E.  Each f32 value a is split
+// into hi = bf16_rn(a) and lo = bf16_rn(a - hi) (a - hi is exact in f32).
+// With the bf16 unit roundoff 2^-8, |a - hi| <= 2^-8 |a| and |a - hi - lo|
+// <= 2^-8 |a - hi| <= 2^-16 |a|.  One tensor-core product over a
+// contraction of 3D, A rows (xh | xh | xl) against B columns (ch | cl |
+// ch), zero-padded to Dp3 = 16 KS, forms xh.ch + xh.cl + xl.ch.  Per
+// dimension, x c - (xh ch + xh cl + xl ch) = xh ec + xl cl + xl ec + ex c
+// (ex = x - xh - xl, ec likewise), at most (1 + 2^-8) 2^-16 + (1 + 2^-8)^2
+// 2^-16 + 2^-24 + 2^-16 < 3.1 * 2^-16 times |x_d c_d|; and sum_d |x_d c_d|
+// <= ||x|| ||c|| (Cauchy-Schwarz).  The tensor cores add the 3D exact bf16
+// products in their own order and rounding, within g = 4 Dp3 2^-24 (K2's
+// assumption for them, 4x gamma_Dp3) of the sum of the terms' magnitudes,
+// which is at most 1.03 ||x|| ||c||.  The FMA chain (the function) is
+// within gamma_D <= D 2^-23 of the same sum of the exact x.c.  So
+//   |acc - chain| <= (1.03 g + 3.1 * 2^-16 + D 2^-23) ||x|| ||c|| + A,
+// where A covers underflow: a tensor core may flush subnormal bf16 inputs,
+// products and sums (at most 2^-126 times the other factor, or 2^-126, for
+// each of the 3D terms and Dp3 additions), a subnormal lo rounds with an
+// absolute error of 2^-134, and the chain underflows by 2^-150 a step;
+// A = 2^-124 (sqrt(D) (||x|| + ||c||) + Dp3) bounds all of them.  Both
+// sides round d = c2 - 2 x.c once (2 x.c is exact), adding 2^-24 |d| each.
+// With ||x|| of the row (f64 sum of squares, rounded up to f32) and
+// max||c|| (f64) in place of ||c||,
+//   E = 1.0625 (2 (1.03 g + 3.1 * 2^-16 + D 2^-23) ||x|| max||c||
+//               + 2 A + 2^-21 max(|d1|, |d2|))
+// bounds |d_tc(j) - d_chain(j)| for every centroid j (the 1.0625 covers
+// the norms' roundings and the slightly larger |d| of a candidate up to
+// d1 + 2E).  If the chain's winner j* is not the tensor cores' i1, then
+// d2 <= d_tc(j*) <= d_chain(j*) + E <= d_chain(i1) + E <= d_tc(i1) + 2E =
+// d1 + 2E (j* < i1 on an exact tie), so every row whose label could differ
+// has a gap d2 - d1 <= 2E and is listed; so is every row (K > 1) with a
+// non-finite d1 or d2 (a NaN distance also sets d2 = d1), or with ||x||
+// max||c|| >= 2^125, where 2 x.c may overflow.  assign_recheck_kernel gives
+// each listed row the chain's label from the f32 values.
+// ops/kmeans.py::_assign_split_ref is this route in plain PyTorch, and
+// tests/test_torch_kmeans.py holds E against the chain on the CPU.
+//
+// What bounds it here.  K2's tensor-core pass does 2 rows k D bf16
 // operations (0.21 ms at 64 x 65,536 rows, k = 1024, D = 24, at 989 TFLOP/s) but about six FP32
 // and integer instructions a (row, centroid) pair in its argmin epilogue,
 // which bound it in practice; x is read once (403 MB at 4.19M rows of 24).
+// K3's split product has 2.5x the k-steps of K2's at D = 24 (5 a 16 x 8
+// tile) against the same epilogue, so the two are about even.  Its packed
+// centroids (655 KB at K = 4096, D = 24) do not fit in shared memory: each
+// block streams them from L2 in tiles, the next one copied (cp.async)
+// while the current one is used, and owns 256 rows (two m-tiles a warp up
+// to KS = 8) so that each staged byte feeds twice the mma of a 128-row
+// block; two n-tiles a step keep four independent mma chains in flight.
+// With the exact re-check, none of its 2 N K D operations need the FP32
+// pipe.
 // The CUDA-core pass is bound by FP32 FMA throughput (N K D FMAs).  Its
 // design:
 //   - 256 threads; a tile of rows of x sits in shared memory transposed
@@ -66,6 +116,7 @@
 //   - one block per 512 rows of each chunk.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -697,6 +748,458 @@ int lloyd_labels_bf16(const float* x, const float* c, const int* n_valid, int* l
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ K3's f32 labels on the tensor cores
+
+constexpr int kAsWarps = 8;
+constexpr int kAsThreads = kAsWarps * 32;
+constexpr size_t kAsTileBudget = 100 * 1024;     // both centroid buffers of a block
+constexpr size_t kAsRecheckBudget = 96 * 1024;   // one f32 centroid tile of the re-check
+constexpr int kAsRecheckBlocks = 256;            // re-check blocks (those beyond the list exit)
+
+// k-steps of the split product at width D: 3 D zero-padded to 16 KS
+__host__ __device__ constexpr int as_ks(int D) { return (3 * D + 15) / 16; }
+// m-tiles a warp owns: two while their A fragments take at most 64 registers
+__host__ __device__ constexpr int as_mt(int ks) { return ks <= 8 ? 2 : 1; }
+// Words of one packed centroid: 8 KS bf16 pairs, then padding to stride %
+// 32 == 8, so that the 64-bit loads of a half-warp (centroids g = 0..3 or
+// 4..7, word pairs 2t) fall in 16 distinct bank pairs.
+__host__ __device__ constexpr int as_stride(int ks) { return 8 * ks + (40 - 8 * ks % 32) % 32; }
+
+// Column q of the split layout of one row of D f32 values: xh | xh | xl for
+// x (A), ch | cl | ch for a centroid (B); 0 from 3D on.
+__device__ __forceinline__ float split_col(const float* row, int q, int D, bool centroid) {
+  if (q >= 3 * D) return 0.f;
+  const int part = q / D;
+  const float v = row[q - part * D];
+  const float hi = bf16_round(v);
+  return (centroid ? part == 1 : part == 2) ? bf16_round(__fsub_rn(v, hi)) : hi;
+}
+
+// K3's centroids, packed once a launch: cw[j * stride + w] holds the split
+// B operand of centroid j in the order the labels kernel reads it (word 2t
+// + h of k-step ks holds columns 16 ks + 8 h + 2t, +1, so a thread's two
+// fragment words are one 64-bit load), zero for the padding words and the
+// padded slots K <= j < kp; c2[j] = ||c_j||^2 by the f32 FMA chain (+inf
+// for the padded slots, which then never win); *cmax2 rises to the largest
+// ||c_j||^2 in f64 (nonnegative doubles order as their bits).
+__global__ void __launch_bounds__(256)
+assign_pack_kernel(const float* __restrict__ c, uint32_t* __restrict__ cw,
+                   float* __restrict__ c2, unsigned long long* __restrict__ cmax2, int D, int K,
+                   int kp, int ks, int stride) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i < kp * stride) {
+    const int j = i / stride;
+    const int w = i - j * stride;
+    uint32_t v = 0;
+    if (j < K && w < 8 * ks) {
+      const int p = w % 8;
+      const int q = 16 * (w / 8) + 8 * (p & 1) + 2 * (p >> 1);
+      const float* cj = c + static_cast<size_t>(j) * D;
+      v = pack_bf16(split_col(cj, q, D, true), split_col(cj, q + 1, D, true));
+    }
+    cw[i] = v;
+  }
+  if (i < kp) {
+    float s = CUDART_INF_F;
+    if (i < K) {
+      s = 0.f;
+      double n2 = 0.0;
+      const float* cj = c + static_cast<size_t>(i) * D;
+      for (int d = 0; d < D; ++d) {
+        const float v = cj[d];
+        s = fmaf(v, v, s);
+        n2 = fma(static_cast<double>(v), static_cast<double>(v), n2);
+      }
+      atomicMax(cmax2, static_cast<unsigned long long>(__double_as_longlong(n2)));
+    }
+    c2[i] = s;
+  }
+}
+
+// Whether a row's tensor-core top two leave its label in doubt: E as the
+// comment at the top of this file derives it, in f64.
+__device__ __forceinline__ bool assign_listed(float d1, float d2, float xn, double cmax, int D,
+                                              int dp3) {
+  if (!isfinite(d1) || !isfinite(d2)) return true;
+  const double xc = static_cast<double>(xn) * cmax;
+  if (!(xc < 0x1p125)) return true;  // 2 x.c may overflow f32 (or a norm is NaN)
+  const double rel = 2.0 * (1.03 * 4.0 * dp3 * 0x1p-24 + 3.1 * 0x1p-16 + D * 0x1p-23);
+  const double e = static_cast<double>(kBoundSlack) *
+                   (rel * xc + 0x1p-123 * (sqrt(static_cast<double>(D)) * (xn + cmax) + dp3) +
+                    0x1p-21 * fmax(fabs(static_cast<double>(d1)), fabs(static_cast<double>(d2))));
+  return !(static_cast<double>(d2) - static_cast<double>(d1) > 2.0 * e);
+}
+
+// Labels of rows [blockIdx.x * rows, +rows), rows = 128 MT, by the split
+// product.  Each warp owns MT m-tiles of 16 rows, their split A fragments
+// (bf16) in registers.  The packed centroids stream through two shared
+// buffers of kt centroids (tile kb + 1 copied by cp.async while tile kb is
+// used); for each pair of n-tiles (16 centroids), KS mma.sync per m-tile
+// and n-tile form the split x.c, then d = ||c||^2 - 2 x.c enters each
+// row's running top two in ascending centroid order.  After the last tile
+// the four threads of a row merge their top twos, one writes the label,
+// and a row in doubt (assign_listed) is appended to amb_rows for
+// assign_recheck_kernel.
+template <int KS>
+__global__ void __launch_bounds__(kAsThreads)
+assign_labels_tc_kernel(const float* __restrict__ x, const uint32_t* __restrict__ cwg,
+                        const float* __restrict__ c2g,
+                        const unsigned long long* __restrict__ cmax2, int* __restrict__ labels,
+                        int* __restrict__ amb_rows, int* __restrict__ amb_count, int N, int D,
+                        int K, int kt) {
+  constexpr int MT = as_mt(KS);
+  constexpr int kStride = as_stride(KS);
+  extern __shared__ __align__(16) uint32_t tsm[];
+  const int tile_words = kt * kStride;
+  uint32_t* cw = tsm;                                                // [2][kt][kStride]
+  float* c2s = reinterpret_cast<float*>(tsm + 2 * tile_words);       // [2][kt]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // row (and centroid) of the fragments within a tile
+  const int t = lane % 4;  // column pair of the fragments
+  const int ntiles = (K + kt - 1) / kt;
+
+  // copy tile kb (words and norms) into buffer kb & 1, one pipeline stage
+  auto stage = [&](int kb) {
+    const uint32_t* src = cwg + static_cast<size_t>(kb) * tile_words;
+    uint32_t* dst = cw + (kb & 1) * tile_words;
+    for (int i = threadIdx.x * 4; i < tile_words; i += kAsThreads * 4) {
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+    }
+    const float* csrc = c2g + static_cast<size_t>(kb) * kt;
+    float* cdst = c2s + (kb & 1) * kt;
+    for (int i = threadIdx.x * 4; i < kt; i += kAsThreads * 4) {
+      __pipeline_memcpy_async(cdst + i, csrc + i, 16);
+    }
+    __pipeline_commit();
+  };
+  stage(0);
+
+  // A fragments of rows r0 + 16 m + g (h = 0) and + 8 (h = 1), and their
+  // ||x|| (f64 sum of squares over the quad, rounded up to f32)
+  const int r0 = blockIdx.x * (kAsWarps * 16 * MT) + warp * 16 * MT;
+  uint32_t a[MT][KS][4];
+  float xn[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 16 * m + 8 * h + g;
+      const bool ok = r < N;
+      const float* xr = x + static_cast<size_t>(ok ? r : 0) * D;
+      double s = 0.0;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int hk = 0; hk < 2; ++hk) {
+          const int q = 16 * ks + 8 * hk + 2 * t;
+          const float v0 = ok ? split_col(xr, q, D, false) : 0.f;
+          const float v1 = ok ? split_col(xr, q + 1, D, false) : 0.f;
+          a[m][ks][2 * hk + h] = pack_bf16(v0, v1);
+          if (ok && q < D) s = fma(static_cast<double>(xr[q]), static_cast<double>(xr[q]), s);
+          if (ok && q + 1 < D) {
+            s = fma(static_cast<double>(xr[q + 1]), static_cast<double>(xr[q + 1]), s);
+          }
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      xn[m][h] = __double2float_ru(sqrt(s));
+    }
+  }
+
+  float d1[MT][2], d2[MT][2];
+  int i1[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      d1[m][h] = d2[m][h] = CUDART_INF_F;
+      i1[m][h] = 0;
+    }
+  }
+  for (int kb = 0; kb < ntiles; ++kb) {
+    if (kb + 1 < ntiles) {
+      stage(kb + 1);
+      __pipeline_wait_prior(1);  // this thread's copies of tile kb are in
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // and every thread's
+    const uint32_t* cwb = cw + (kb & 1) * tile_words;
+    const float* c2b = c2s + (kb & 1) * kt;
+    const int j0 = kb * kt;
+    const int npairs = (min(kt, K - j0) + 15) / 16;
+    for (int np = 0; np < npairs; ++np) {
+      // words 2t, 2t + 1 of each k-step of centroids g and g + 8 of the pair
+      const uint32_t* b0 = cwb + (np * 16 + g) * kStride + 2 * t;
+      const uint32_t* b1 = b0 + 8 * kStride;
+      float acc[MT][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint2 w0 = *reinterpret_cast<const uint2*>(b0 + ks * 8);
+        const uint2 w1 = *reinterpret_cast<const uint2*>(b1 + ks * 8);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(acc[m][0], a[m][ks], w0.x, w0.y);
+          mma_bf16(acc[m][1], a[m][ks], w1.x, w1.y);
+        }
+      }
+      const float2 ca = *reinterpret_cast<const float2*>(c2b + np * 16 + 2 * t);
+      const float2 cb = *reinterpret_cast<const float2*>(c2b + np * 16 + 8 + 2 * t);
+      const int j = j0 + np * 16 + 2 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // d = c2 - 2 acc, one rounding (2 acc is exact), centroids ascending
+          top2(d1[m][h], d2[m][h], i1[m][h], fmaf(-2.f, acc[m][0][2 * h], ca.x), j);
+          top2(d1[m][h], d2[m][h], i1[m][h], fmaf(-2.f, acc[m][0][2 * h + 1], ca.y), j + 1);
+          top2(d1[m][h], d2[m][h], i1[m][h], fmaf(-2.f, acc[m][1][2 * h], cb.x), j + 8);
+          top2(d1[m][h], d2[m][h], i1[m][h], fmaf(-2.f, acc[m][1][2 * h + 1], cb.y), j + 9);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buffer kb & 1 before it is refilled
+  }
+
+  const double cmax = sqrt(__longlong_as_double(static_cast<long long>(*cmax2)));
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top2_quad(d1[m][h], d2[m][h], i1[m][h]);
+      const int r = r0 + 16 * m + 8 * h + g;
+      if (t != h || r >= N) continue;  // one thread of the quad writes
+      labels[r] = i1[m][h];
+      if (K > 1 && assign_listed(d1[m][h], d2[m][h], xn[m][h], cmax, D, 16 * KS)) {
+        amb_rows[atomicAdd(amb_count, 1)] = r;
+      }
+    }
+  }
+}
+
+// Row stride of a staged f32 centroid of the re-check: D rounded up to 4,
+// then to 4 mod 8 words, so that the 128-bit loads of 8 lanes fall in
+// distinct bank quads.
+__host__ __device__ inline int rc_stride(int D) {
+  const int s = round_up(D, 4);
+  return s % 8 ? s : s + 4;
+}
+
+// The exact labels of the rows that assign_labels_tc_kernel listed: block
+// b stages the f32 centroids tile by tile (cp.async, rows of rc_stride(D)
+// words, zero from D on), with c2 from the pack.  Warp w takes kRcRows
+// listed rows at a time, from (8 b + w) kRcRows on in steps of 8 gridDim.x
+// kRcRows; each lane takes centroids jj and jj + 32 at a time, so that a
+// centroid value loaded from shared memory feeds kRcRows chains and a row
+// value kRcCols; each chain is the sequential f32 FMA chain over d = 0,
+// 1, ... of the f32 values (the padded dimensions add fmaf(0, 0, s), as
+// nearest_pass_kernel's do), d = c2 - 2 x.c, and a warp argmin keeps the
+// lower index on ties.  Across tiles each row's minimum so far waits in
+// best_d / best_i (an earlier tile keeps a tie).
+constexpr int kRcRows = 4;  // listed rows a warp re-checks at once
+constexpr int kRcCols = 2;  // centroids a lane takes at once
+__global__ void __launch_bounds__(kAsThreads)
+assign_recheck_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                      const float* __restrict__ c2g, const int* __restrict__ amb_rows,
+                      const int* __restrict__ amb_count, int* __restrict__ labels,
+                      float* __restrict__ best_d, int* __restrict__ best_i, int D, int K, int kt) {
+  const int count = *amb_count;
+  const int stride_rows = gridDim.x * kAsWarps * kRcRows;
+  if (static_cast<int>(blockIdx.x) * kAsWarps * kRcRows >= count) return;  // nothing listed for it
+  const int cs = rc_stride(D);
+  const int dp = round_up(D, 4);
+  extern __shared__ __align__(16) float fsm[];
+  float* cf = fsm;                          // [kt][cs]
+  float* c2s = cf + kt * cs;                // [kt]
+  float* xw = c2s + round_up(kt, 4);        // [kAsWarps][kRcRows][dp]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* xs = xw + warp * kRcRows * dp;
+  for (int i = threadIdx.x; i < kt * (dp - D); i += kAsThreads) {  // the padded dimensions
+    const int j = i / (dp - D);
+    cf[j * cs + D + (i - j * (dp - D))] = 0.f;
+  }
+  const int ntiles = (K + kt - 1) / kt;
+  for (int kb = 0; kb < ntiles; ++kb) {
+    const int j0 = kb * kt;
+    const int jn = min(kt, K - j0);
+    __syncthreads();  // every warp is done with the previous tile
+    const float* src = c + static_cast<size_t>(j0) * D;
+    for (int i = threadIdx.x; i < jn * D; i += kAsThreads) {
+      const int j = i / D;
+      __pipeline_memcpy_async(cf + j * cs + (i - j * D), src + i, sizeof(float));
+    }
+    for (int i = threadIdx.x; i < jn; i += kAsThreads) {
+      __pipeline_memcpy_async(c2s + i, c2g + j0 + i, sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int e0 = (blockIdx.x * kAsWarps + warp) * kRcRows; e0 < count; e0 += stride_rows) {
+      const int nr = min(kRcRows, count - e0);
+      for (int i = lane; i < kRcRows * dp; i += 32) {
+        const int q = i / dp;
+        const int d = i - q * dp;
+        xs[i] = q < nr && d < D ? x[static_cast<size_t>(amb_rows[e0 + q]) * D + d] : 0.f;
+      }
+      __syncwarp();
+      float best[kRcRows];
+      int bi[kRcRows];
+#pragma unroll
+      for (int q = 0; q < kRcRows; ++q) {
+        best[q] = CUDART_INF_F;
+        bi[q] = 0;
+      }
+      for (int jj = lane; jj < jn; jj += 32 * kRcCols) {
+        const bool has1 = jj + 32 < jn;
+        const float* cj0 = cf + jj * cs;
+        const float* cj1 = has1 ? cj0 + 32 * cs : cj0;
+        float s[kRcRows][kRcCols] = {};
+        for (int d = 0; d < dp; d += 4) {
+          const float4 ca = *reinterpret_cast<const float4*>(cj0 + d);
+          const float4 cb = *reinterpret_cast<const float4*>(cj1 + d);
+#pragma unroll
+          for (int q = 0; q < kRcRows; ++q) {
+            const float4 xv = *reinterpret_cast<const float4*>(xs + q * dp + d);
+            s[q][0] = fmaf(xv.x, ca.x, s[q][0]);
+            s[q][1] = fmaf(xv.x, cb.x, s[q][1]);
+            s[q][0] = fmaf(xv.y, ca.y, s[q][0]);
+            s[q][1] = fmaf(xv.y, cb.y, s[q][1]);
+            s[q][0] = fmaf(xv.z, ca.z, s[q][0]);
+            s[q][1] = fmaf(xv.z, cb.z, s[q][1]);
+            s[q][0] = fmaf(xv.w, ca.w, s[q][0]);
+            s[q][1] = fmaf(xv.w, cb.w, s[q][1]);
+          }
+        }
+        // a lane's centroids in ascending order; strict: the earlier keeps a tie
+#pragma unroll
+        for (int q = 0; q < kRcRows; ++q) {
+          const float da = __fsub_rn(c2s[jj], __fmul_rn(2.f, s[q][0]));
+          if (da < best[q]) { best[q] = da; bi[q] = j0 + jj; }
+          if (has1) {
+            const float db = __fsub_rn(c2s[jj + 32], __fmul_rn(2.f, s[q][1]));
+            if (db < best[q]) { best[q] = db; bi[q] = j0 + jj + 32; }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRcRows; ++q) {
+#pragma unroll
+        for (int m = 16; m >= 1; m >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[q], m);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[q], m);
+          if (ob < best[q] || (ob == best[q] && oi < bi[q])) { best[q] = ob; bi[q] = oi; }
+        }
+      }
+      if (lane < nr) {
+        float bq = best[0];
+        int iq = bi[0];
+#pragma unroll
+        for (int q = 1; q < kRcRows; ++q) {
+          if (lane == q) { bq = best[q]; iq = bi[q]; }
+        }
+        const int e = e0 + lane;
+        if (kb > 0) {  // the earlier tiles' minimum keeps a tie
+          const float pb = best_d[e];
+          const int pi = best_i[e];
+          if (!(bq < pb)) { bq = pb; iq = pi; }
+        }
+        if (kb + 1 < ntiles) {
+          best_d[e] = bq;
+          best_i[e] = iq;
+        } else {
+          labels[amb_rows[e]] = iq;
+        }
+      }
+      __syncwarp();  // xs is consumed
+    }
+  }
+}
+
+// Shapes of one K3 launch on the tensor-core route.
+struct AssignPlan {
+  int ks = 0;      // k-steps of the split product
+  int stride = 0;  // words of a packed centroid
+  int kt = 0;      // centroids of a labels tile (a multiple of 16)
+  int kp = 0;      // packed centroid slots: K rounded up to kt
+  int kt_r = 0;    // centroids of a re-check tile
+  size_t smem = 0, rsmem = 0;
+};
+
+AssignPlan plan_assign(int D, int K) {
+  AssignPlan p;
+  p.ks = as_ks(D);
+  p.stride = as_stride(p.ks);
+  const size_t per = static_cast<size_t>(p.stride) * sizeof(uint32_t) + sizeof(float);
+  const int cap = std::max(16, static_cast<int>(kAsTileBudget / (2 * per)) / 16 * 16);
+  p.kt = std::min(round_up(K, 16), cap);
+  p.kp = round_up(K, p.kt);
+  p.smem = 2 * p.kt * per;
+  const size_t rper = static_cast<size_t>(rc_stride(D) + 1) * sizeof(float);
+  const size_t xbytes = static_cast<size_t>(kAsWarps) * kRcRows * round_up(D, 4) * sizeof(float);
+  p.kt_r = std::min(K, static_cast<int>((kAsRecheckBudget - xbytes) / rper) / 4 * 4);
+  p.rsmem = (static_cast<size_t>(p.kt_r) * rc_stride(D) + round_up(p.kt_r, 4)) * sizeof(float) +
+            xbytes;
+  return p;
+}
+
+template <int KS>
+int launch_assign_tc(const float* x, const uint32_t* cw, const float* c2,
+                     const unsigned long long* cmax2, int* labels, int* amb_rows, int* amb_count,
+                     int N, int D, int K, int kt, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(assign_labels_tc_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int rows = kAsWarps * 16 * as_mt(KS);
+  const int nblocks = static_cast<int>((static_cast<long long>(N) + rows - 1) / rows);
+  assign_labels_tc_kernel<KS><<<nblocks, kAsThreads, smem, stream>>>(
+      x, cw, c2, cmax2, labels, amb_rows, amb_count, N, D, K, kt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 at D <= 128: pack, tensor-core labels, exact re-check of the listed
+// rows (amb_count is zeroed by the caller).
+int assign_tc(const float* x, const float* c, int* labels, int* scratch, int* amb_count, int N,
+              int D, int K, cudaStream_t stream) {
+  const AssignPlan p = plan_assign(D, K);
+  const size_t packed = static_cast<size_t>(p.kp) * p.stride;
+  uint32_t* cw = reinterpret_cast<uint32_t*>(scratch);
+  float* c2 = reinterpret_cast<float*>(scratch + packed);
+  auto* cmax2 = reinterpret_cast<unsigned long long*>(scratch + packed + p.kp);
+  int* amb_rows = scratch + packed + p.kp + 2;
+  float* best_d = reinterpret_cast<float*>(amb_rows + N);
+  int* best_i = amb_rows + 2 * static_cast<size_t>(N);
+  cudaError_t err = cudaMemsetAsync(cmax2, 0, sizeof(*cmax2), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pblocks = static_cast<int>((packed + 255) / 256);
+  assign_pack_kernel<<<pblocks, 256, 0, stream>>>(c, cw, c2, cmax2, D, K, p.kp, p.ks, p.stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using Launch = int (*)(const float*, const uint32_t*, const float*, const unsigned long long*,
+                         int*, int*, int*, int, int, int, int, size_t, cudaStream_t);
+  // one instance per k-step count: D up to 5, 10, 16, ..., 128
+  constexpr Launch kLaunch[] = {
+      launch_assign_tc<1>,  launch_assign_tc<2>,  launch_assign_tc<3>,  launch_assign_tc<4>,
+      launch_assign_tc<5>,  launch_assign_tc<6>,  launch_assign_tc<7>,  launch_assign_tc<8>,
+      launch_assign_tc<9>,  launch_assign_tc<10>, launch_assign_tc<11>, launch_assign_tc<12>,
+      launch_assign_tc<13>, launch_assign_tc<14>, launch_assign_tc<15>, launch_assign_tc<16>,
+      launch_assign_tc<17>, launch_assign_tc<18>, launch_assign_tc<19>, launch_assign_tc<20>,
+      launch_assign_tc<21>, launch_assign_tc<22>, launch_assign_tc<23>, launch_assign_tc<24>};
+  const int lerr = kLaunch[p.ks - 1](x, cw, c2, cmax2, labels, amb_rows, amb_count, N, D, K, p.kt,
+                                     p.smem, stream);
+  if (lerr != 0) return lerr;
+  err = cudaFuncSetAttribute(assign_recheck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p.rsmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  assign_recheck_kernel<<<kAsRecheckBlocks, kAsThreads, p.rsmem, stream>>>(
+      x, c, c2, amb_rows, amb_count, labels, best_d, best_i, D, K, p.kt_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K2's labels.  x [C, P, D], c [C, K, D] f32; n_valid [C] i32 -> labels
@@ -722,12 +1225,32 @@ extern "C" int kmeans_lloyd_labels(const float* x, const float* c, const int* n_
   return launch_nearest<true>(x, c, n_valid, labels, seg, C, P, D, K, bf16, s);
 }
 
-// K3.  x [N, D], c [K, D] f32 -> labels [N] i32.
-extern "C" int kmeans_assign(const float* x, const float* c, int* labels, int N, int D,
-                             int K, void* stream) {
+// Scratch of a K3 launch, in int32 words: on the tensor-core route the
+// packed centroids [kp * stride], c2 [kp], the largest ||c||^2 (f64, 2
+// words), then the listed rows, best_d and best_i [N] each; none above
+// D = 128.
+extern "C" int kmeans_assign_scratch(int N, int D, int K, long long* words) {
   if (N <= 0 || D <= 0 || D > kMaxD || K <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_nearest<false>(x, c, nullptr, labels, nullptr, 1, N, D, K, 0,
-                               static_cast<cudaStream_t>(stream));
+  const AssignPlan p = plan_assign(D, K);
+  *words = D > kTcMaxD ? 0 : static_cast<long long>(p.kp) * p.stride + p.kp + 2 + 3LL * N;
+  return 0;
+}
+
+// K3.  x [N, D], c [K, D] f32 -> labels [N] i32; scratch of
+// kmeans_assign_scratch's words; amb_count [1] i32, the rows re-checked
+// exactly.  D <= 128 takes the split tensor-core pass and its re-check;
+// wider rows the CUDA-core FMA-chain pass.  Returns cudaGetLastError()
+// after the launches.
+extern "C" int kmeans_assign(const float* x, const float* c, int* labels, int* scratch,
+                             int* amb_count, int N, int D, int K, void* stream) {
+  if (N <= 0 || D <= 0 || D > kMaxD || K <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(amb_count, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (D <= kTcMaxD) return assign_tc(x, c, labels, scratch, amb_count, N, D, K, s);
+  return launch_nearest<false>(x, c, nullptr, labels, nullptr, 1, N, D, K, 0, s);
 }

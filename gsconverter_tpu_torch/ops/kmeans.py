@@ -13,7 +13,13 @@ in ``csrc/kmeans_update.cu``:
     each row's segment (chunk * K + label, -1 at and above n_valid), and
     K4 sums the segments: so the sums are in ``_lloyd_ordered_ref``'s
     order, the same on every card;
-  - K3, nearest-centroid labels for any K: ``_assign_kernel``;
+  - K3, nearest-centroid labels for any K: ``_assign_kernel``.  Up to
+    D = 128 it splits the f32 values into two bf16 terms each, forms x.c
+    as one three-term tensor-core product, and re-checks exactly, by the
+    FMA chain of the f32 values, every row whose two nearest centroids lie
+    within that product's error bound of each other (``_assign_split_ref``
+    is this route in plain PyTorch); wider rows take the FMA chain on the
+    CUDA cores;
   - K4, segment sums and counts of labelled rows, in a summation order
     fixed by the input alone (``_update_ordered_ref``): ``_update_kernel``.
 
@@ -69,6 +75,9 @@ LAUNCHES = {"lloyd": 0, "assign": 0, "update": 0}
 #: rows of each chunk [C] (int32, on the card) that the last K2 launch
 #: re-checked by the exact FMA chain
 LAST_RECHECKED: torch.Tensor | None = None
+#: rows [1] (int32, on the card) that the last K3 launch re-checked by the
+#: exact FMA chain
+LAST_ASSIGN_RECHECKED: torch.Tensor | None = None
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -327,6 +336,86 @@ def _assign_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                       for i in range(0, x.shape[0], bn)])
 
 
+# K3's tensor-core route at D <= 128 (csrc/kmeans.cu, whose top comment
+# derives the bound): x.c as xh.ch + xh.cl + xl.ch over the bf16 split of
+# the f32 values, and the exact chain for every row in doubt.
+_SPLIT_SLACK = 1.0625  # csrc/kmeans.cu kBoundSlack
+
+
+def _split_bf16(t: torch.Tensor):
+    """(hi, lo) with hi = bf16(t) and lo = bf16(t - hi), as f32."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _split_norms(x: torch.Tensor, c: torch.Tensor):
+    """||x|| per row (f64 sum of squares, rounded up to f32) and the
+    largest ||c|| (f64), as K3 forms them."""
+    xn64 = torch.sqrt((x.to(torch.float64) ** 2).sum(-1))
+    xn = xn64.to(torch.float32)
+    xn = torch.where(xn.to(torch.float64) < xn64, torch.nextafter(xn, xn.new_tensor(np.inf)), xn)
+    cmax = torch.sqrt((c.to(torch.float64) ** 2).sum(-1).max())
+    return xn.to(torch.float64), cmax
+
+
+def _split_bound(xn: torch.Tensor, cmax: torch.Tensor, d: int,
+                 dmax: torch.Tensor | None = None) -> torch.Tensor:
+    """K3's bound E [rows] (f64) on |split-product d - FMA-chain d| of every
+    centroid, from ||x|| [rows], max ||c|| and max(|d1|, |d2|) (left out
+    when ``dmax`` is None: then E / 2 bounds the dot products alone)."""
+    dp3 = -(-3 * d // 16) * 16  # the split product's contraction, padded
+    rel = 2.0 * (1.03 * 4.0 * dp3 * 2.0 ** -24 + 3.1 * 2.0 ** -16 + d * 2.0 ** -23)
+    e = rel * xn * cmax + 2.0 ** -123 * (d ** 0.5 * (xn + cmax) + dp3)
+    if dmax is not None:
+        e = e + 2.0 ** -21 * dmax
+    return _SPLIT_SLACK * e
+
+
+def _split_product(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """xh.ch + xh.cl + xl.ch [R, K] in f64 (each bf16 product is exact)."""
+    (xh, xl), (ch, cl) = _split_bf16(x), _split_bf16(c)
+    xh, xl, ch, cl = (t.to(torch.float64) for t in (xh, xl, ch, cl))
+    return xh @ ch.T + xh @ cl.T + xl @ ch.T
+
+
+def _assign_split_ref(x: torch.Tensor, c: torch.Tensor):
+    """K3's tensor-core route in plain PyTorch, for tests and the card's
+    check (nothing on the main path calls it): labels [N] int32 and the
+    count of rows it re-checks exactly.
+
+    d = c2 - 2 x.c with x.c the split product (here in f64, rounded once
+    to f32 with d); the first argmin and the next distance d2 of each row;
+    a row (K > 1) whose gap d2 - d1 is within 2E (``_split_bound``), or
+    with a non-finite distance, or with ||x|| max||c|| >= 2^125, takes the
+    FMA chain's label instead.  The labels are ``_assign_ref``'s.
+    """
+    n, d = x.shape
+    k = c.shape[0]
+    c2 = _sq_chain(c)
+    xn, cmax = _split_norms(x, c)
+    bn = max(1, min(n, _REF_ELEMS // max(1, k)))
+    labels, listed = [], 0
+    for i in range(0, n, bn):
+        xb = x[i:i + bn]
+        dist = (c2.to(torch.float64)[None, :] - 2.0 * _split_product(xb, c)).to(torch.float32)
+        lab = torch.argmin(torch.where(torch.isnan(dist), np.inf, dist), dim=1)
+        if k > 1:
+            top = torch.topk(torch.where(torch.isnan(dist), np.inf, dist), 2, dim=1,
+                             largest=False).values
+            d1, d2 = top[:, 0].to(torch.float64), top[:, 1].to(torch.float64)
+            e = _split_bound(xn[i:i + bn], cmax, d, torch.maximum(d1.abs(), d2.abs()))
+            amb = (~((d2 - d1) > 2.0 * e) | ~torch.isfinite(d1) | ~torch.isfinite(d2)
+                   | torch.isnan(dist).any(dim=1) | ~(xn[i:i + bn] * cmax < 2.0 ** 125))
+            rows = torch.nonzero(amb).flatten()
+            listed += int(rows.numel())
+            for j in range(0, rows.numel(), 4096):
+                r = rows[j:j + 4096]
+                exact = c2[None, :] - 2.0 * _chain(xb[r], c)
+                lab[r] = torch.argmin(exact, dim=1)
+        labels.append(lab.to(torch.int32))
+    return torch.cat(labels), listed
+
+
 def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid labels by kernel K3 (``_assign_ref``'s function), for
     any K and D <= MAX_D.  A CPU tensor takes the plain version."""
@@ -339,13 +428,22 @@ def _assign_kernel(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return _assign_ref(x, c)
     if x.shape[1] > MAX_D:
         raise ValueError(f"K3 takes D <= {MAX_D}, got {x.shape[1]}")
-    labels = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-    fn = _lib_fn("kmeans_assign", [_P] * 3 + [_I] * 3 + [_P])
+    n, d = x.shape
+    k = c.shape[0]
+    words = ctypes.c_longlong(0)
+    size_fn = _lib_fn("kmeans_assign_scratch", [_I] * 3 + [ctypes.POINTER(ctypes.c_longlong)])
+    _raise_on(size_fn(n, d, k, ctypes.byref(words)), "kmeans_assign_scratch (K3)")
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(words.value, dtype=torch.int32, device=x.device)
+    amb_count = torch.empty(1, dtype=torch.int32, device=x.device)
+    fn = _lib_fn("kmeans_assign", [_P] * 5 + [_I] * 3 + [_P])
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), c.data_ptr(), labels.data_ptr(), x.shape[0],
-                 x.shape[1], c.shape[0], _stream(x))
+        err = fn(x.data_ptr(), c.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+                 amb_count.data_ptr(), n, d, k, _stream(x))
     _raise_on(err, "kmeans_assign (K3)")
     LAUNCHES["assign"] += 1
+    global LAST_ASSIGN_RECHECKED
+    LAST_ASSIGN_RECHECKED = amb_count
     return labels
 
 

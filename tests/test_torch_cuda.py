@@ -258,14 +258,53 @@ def test_lloyd_kernel_at_the_sog_palette_shape(card):
     assert int(rechecked.sum()) <= 0.05 * n
 
 
-def test_assign_kernel_matches_plain_version(card):
-    x, c, _ = _kmeans_inputs(card, chunks=1, p=9000, k=4100, seed=1)
+def _assign_inputs(card, case):
+    """x [N, D] and centroids [K, D] of one K3 case."""
+    r = np.random.default_rng(len(case))
+    if case == "k4100":  # K not a multiple of 8 or 16, on a 0.01 grid
+        x, c, _ = _kmeans_inputs(card, chunks=1, p=9000, k=4100, seed=1)
+        return x[0], c[0]
+    if case == "grid_ties":  # u8 grid (SOG's dequantized values), exact ties
+        x = (np.float32(-1.57) + np.float32(0.0123) * r.integers(0, 256, (20_000, 24)))
+        x = x.astype(np.float32)
+        c = x[r.choice(20_000, 600, replace=False)].copy()
+        c[300], c[550], c[599] = c[5], c[260], c[5]
+        x[:100], x[100:200] = c[5], c[260]
+        return torch.from_numpy(x).to(card), torch.from_numpy(c).to(card)
+    n, d, k = {"normal_1m": (1_048_576, 24, 4096), "d45": (9000, 45, 700),
+               "d128": (9000, 128, 1000), "d129": (9000, 129, 300), "k1": (5000, 24, 1),
+               "magnitudes": (9000, 24, 512)}[case]
+    x = r.normal(0, 1, (n, d)).astype(np.float32)
+    if case == "magnitudes":  # rows of magnitude 1e-30 and 1e15
+        x[: n // 3] *= np.float32(1e-30)
+        x[n // 3: 2 * n // 3] *= np.float32(1e15)
+    c = x[r.choice(n, k, replace=False)].copy()
+    return torch.from_numpy(x).to(card), torch.from_numpy(c).to(card)
+
+
+@pytest.mark.parametrize("case", ["normal_1m", "grid_ties", "d45", "d128", "d129", "k1",
+                                  "k4100", "magnitudes"])
+def test_assign_kernel_matches_plain_version(card, case):
+    """K3 equals its plain version on every row, a repeat launch is
+    bit-identical, and on the tensor-core route (D <= 128) the share of
+    rows it re-checks is within 2x of its plain spec's (``_assign_split_ref``,
+    with 4 rows of room for counts near 0); D = 129 takes the chain."""
+    x, c = _assign_inputs(card, case)
     launches = km.LAUNCHES["assign"]
-    l1 = km._assign_kernel(x[0], c[0])
-    torch.cuda.synchronize()
+    l1 = km._assign_kernel(x, c)
+    listed = int(km.LAST_ASSIGN_RECHECKED)
     assert km.LAUNCHES["assign"] == launches + 1
-    assert torch.equal(l1, km._assign_ref(x[0], c[0]))
-    assert torch.equal(l1, km._assign_kernel(x[0], c[0]))
+    assert torch.equal(l1, km._assign_ref(x, c))
+    assert torch.equal(l1, km._assign_kernel(x, c))
+    spec, spec_listed = km._assign_split_ref(x, c)
+    assert torch.equal(spec, l1)
+    if x.shape[1] > km.PRECISION_MAX_D:
+        assert listed == 0
+    else:
+        assert max(listed, spec_listed) <= 2 * min(listed, spec_listed) + 4, (listed, spec_listed)
+    if case == "grid_ties":
+        assert bool((l1[:100] == 5).all()) and bool((l1[100:200] == 260).all())
+        assert listed >= 200
 
 
 def _update_inputs(card, n, d, k, case, seed=2):

@@ -144,6 +144,70 @@ def test_assign_plain_matches_pallas_ties_to_lowest():
     np.testing.assert_array_equal(km.assign(_t(x), _t(c)).numpy(), lj)
 
 
+def _split_case(kind, d, seed):
+    """x [200, d] and centroids [150, d] of one kind: N(0, 1); a u8 grid
+    (SOG's dequantized values); magnitudes from 1e-30 to 1e15, by row and
+    by element; rows that equal centroids."""
+    r = np.random.default_rng(seed)
+    x = r.normal(0, 1, (200, d)).astype(np.float32)
+    c = r.normal(0, 1, (150, d)).astype(np.float32)
+    if kind == "grid":
+        step, mn = np.float32(0.0123), np.float32(-1.57)
+        x = (mn + step * r.integers(0, 256, (200, d))).astype(np.float32)
+        c = x[r.choice(200, 150, replace=False)].copy()
+    elif kind == "magnitudes":
+        x[:100] *= (10.0 ** r.uniform(-30, 15, (100, 1))).astype(np.float32)
+        x[100:] *= (10.0 ** r.uniform(-30, 15, (100, d))).astype(np.float32)
+        c *= (10.0 ** r.uniform(-30, 15, (150, 1))).astype(np.float32)
+    elif kind == "on_centroids":
+        x[::2] = c[r.choice(150, 100)]
+    return x, c
+
+
+@pytest.mark.parametrize("d", [3, 24, 45, 128])
+@pytest.mark.parametrize("kind", ["normal", "grid", "magnitudes", "on_centroids"])
+def test_split_product_is_within_its_bound(kind, d):
+    """K3's split product, with the exact f64 sum and with a sequential f32
+    sum of its 3D terms, stays within E / 2 of the FMA chain for every
+    (row, centroid) pair, so E bounds each distance; and the route's
+    labels are the chain's."""
+    x, c = (_t(a) for a in _split_case(kind, d, seed=d))
+    chain = km._chain(x, c).to(torch.float64)
+    xn, cmax = km._split_norms(x, c)
+    half = km._split_bound(xn, cmax, d)[:, None] / 2
+    split = km._split_product(x, c)
+    assert bool((split - chain).abs().le(half).all())
+    # one rounding to f32 after each term, in column order
+    (xh, xl), (ch, cl) = km._split_bf16(x), km._split_bf16(c)
+    terms = [(xh, ch), (xh, cl), (xl, ch)]
+    acc = torch.zeros(x.shape[0], c.shape[0], dtype=torch.float64)
+    for a, b in terms:
+        for i in range(d):
+            prod = a[:, i, None].double() * b[None, :, i].double()
+            acc = (acc + prod).to(torch.float32).to(torch.float64)
+    assert bool((acc - chain).abs().le(half).all())
+    lab, listed = km._assign_split_ref(x, c)
+    assert torch.equal(lab, km._assign_ref(x, c))
+    assert 0 <= listed <= x.shape[0]
+
+
+def test_assign_split_route_matches_pallas_ties_to_lowest():
+    """The split route on the tie inputs of
+    ``test_assign_plain_matches_pallas_ties_to_lowest``: its labels are the
+    plain version's and the Pallas kernel's, and every row on a duplicated
+    centroid is re-checked."""
+    x, c = _data(1200, 24, 600, seed=11)
+    c[300] = c[5]
+    c[550] = c[260]
+    x[:40] = c[5] + np.float32(1e-3) * x[:40]
+    x[40:80] = c[260] + np.float32(1e-3) * x[40:80]
+    lj = np.asarray(jkm.assign(jnp.asarray(x), jnp.asarray(c), impl="pallas_interpret"))
+    lab, listed = km._assign_split_ref(_t(x), _t(c))
+    np.testing.assert_array_equal(lab.numpy(), lj)
+    np.testing.assert_array_equal(lab.numpy(), km._assign_ref(_t(x), _t(c)).numpy())
+    assert 80 <= listed < 1200
+
+
 def test_update_plain_matches_pallas():
     r = np.random.default_rng(12)
     k = 40
