@@ -16,10 +16,18 @@ Phases (any failure ends the run with a non-zero exit):
   4. the main path at full size: a 1M-splat 3DGS PLY through convert() to
      .splat and to 3DGS PLY with the filters bbox, min_opacity=5,
      density_sensitivity=0.5 and sor_intensity=4 on device="cuda", with its
-     launch counts, output checks and per-stage times; then a 20k-splat
+     launch counts, output checks and per-stage times; the same scene to
+     .ksplat at levels 0, 1 and 2, to .spz and to compressed PLY, each with
+     one K1 launch, as many splats kept as .splat, the file read back and
+     its positions within the format's own step of the processed cloud's;
+     then convert_batch of the scene to 3dgs, splat, ksplat, spz and
+     compressed PLY on the card: one K1 launch, every file byte-identical
+     to the standalone card conversion (Parquet is not driven: it has no
+     device stage, and the tests hold it on the CPU); then a 20k-splat
      scene with isolated flyers inside the bbox through bbox, min_opacity=5
      and sor_intensity=4 on "cuda" and on "cpu": SOR must drop rows on both
-     and the outputs must agree;
+     and the outputs must agree, the .ksplat (levels 0-2), .spz and
+     compressed PLY files byte for byte;
   5. K1 against its plain version on the input the main path gave it;
   6. K2 (the Lloyd step: labels kernel, then K4 for the sums) against its
      plain version at the SOG palette's shapes for 3M splats (64 chunks of
@@ -52,6 +60,7 @@ and exits 1.  Everything it writes goes under build/chip_smoke/.
 """
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -82,6 +91,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # add 2 for 512 of the 512 + 2w candidates.
 K1_DIST_OPS, K1_STATS_OPS, K1_FINAL_OPS, K1_STEP_OPS, K1_MID_OPS = 12, 3, 3, 2, 2
 BBOX = (-60.0, -60.0, -60.0, 60.0, 60.0, 60.0)
+EXT = {"splat": ".splat", "3dgs": ".ply", "ksplat": ".ksplat", "spz": ".spz",
+       "compressed_ply": ".ply"}
 MAIN_FLAGS = dict(bbox=BBOX, min_opacity=5, density_sensitivity=0.5,
                   sor_intensity=4)
 # the 20k scene's flags: without the density filter, which would take the
@@ -101,6 +112,16 @@ K34_N, K34_D, K34_K = 1_048_576, 24, 4096
 # (rows, centroids) of K3's u8-grid case with exact ties, at D = K34_D
 K3_GRID = (262_144, 600)
 SMALL_SOG_N = 20_000
+# the main path's other codecs: (label, format, write options)
+MAIN_CODECS = (("ksplat_l0", "ksplat", dict(compression_level=0)),
+               ("ksplat_l1", "ksplat", dict(compression_level=1)),
+               ("ksplat_l2", "ksplat", dict(compression_level=2)),
+               ("spz", "spz", dict(compression_level=1)),
+               ("compressed_ply", "compressed_ply", {}))
+# the batch phase's formats, written with compression_level=BATCH_LEVEL;
+# each file must equal the standalone run of the same format and options
+BATCH_FORMATS = ("3dgs", "splat", "ksplat", "spz", "compressed_ply")
+BATCH_LEVEL = 1
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "chip_smoke")
@@ -332,6 +353,62 @@ def check_output(fmt, path, n_kept):
         fail(f"{fmt} output has splats outside the bbox")
 
 
+def file_digest(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def codec_pos_step(fmt, opts, path, handler, n):
+    """Each row's position step in a file of ``fmt`` (the error its decode
+    may carry, one step, twice the rounding's half step): 0 for .ksplat
+    level 0 (f32), block_size / 2 / 32767 at levels 1-2, 1/4096 for .spz
+    (24-bit fixed point, 12 fractional bits), and the 11-10-11 step of the
+    row's chunk bounds for compressed PLY."""
+    from gsconverter_tpu_torch.utils import ply
+
+    if fmt == "ksplat":
+        if not opts.get("compression_level"):
+            return np.zeros((n, 3))
+        block = handler.metadata["sections"][0]["bucketBlockSize"]
+        return np.full((n, 3), block / 2.0 / 32767)
+    if fmt == "spz":
+        return np.full((n, 3), 1.0 / 4096)
+    chunks = ply.read(path)["chunk"].data
+    mins = np.stack([chunks[f"min_{a}"] for a in "xyz"], axis=1).astype(np.float64)
+    maxs = np.stack([chunks[f"max_{a}"] for a in "xyz"], axis=1).astype(np.float64)
+    return ((maxs - mins) / np.array([2047.0, 1023.0, 2047.0]))[np.arange(n) // 256]
+
+
+def check_codec_output(fmt, opts, path, processed):
+    """Read a .ksplat, .spz or compressed PLY back: every splat, finite
+    leaves, positions within the format's step of the processed cloud's (in
+    the writer's order: Morton for .ksplat level >= 1 and compressed PLY)."""
+    from gsconverter_tpu_torch.formats import get_handler
+    from gsconverter_tpu_torch.formats.compressed_ply import morton_order
+
+    handler = get_handler(fmt)
+    back = handler.read(path)
+    if back.n != processed.n:
+        fail(f"{fmt} {opts} decodes to {back.n} splats, {processed.n} were kept")
+    for name in ("pos", "opacity", "log_scale", "quat", "sh_dc", "sh_rest"):
+        if not np.isfinite(np.asarray(getattr(back, name))).all():
+            fail(f"{fmt} {opts} output has non-finite {name}")
+    ref = np.asarray(processed.pos)
+    if fmt == "compressed_ply" or (fmt == "ksplat" and opts.get("compression_level")):
+        ref = ref[morton_order(ref)]
+    step = codec_pos_step(fmt, opts, path, handler, back.n)
+    err = np.abs(back.pos.astype(np.float64) - ref)
+    # f32 roundings of the decode on top of the step
+    slack = 1e-6 * (1.0 + np.abs(ref))
+    within = bool((err <= step + slack).all())
+    worst = float((err / np.maximum(step, 1e-30)).max()) if step.any() else float(err.max())
+    out = dict(positions_within_step=within, pos_err_steps=worst,
+               step_max=float(step.max()))
+    if not within:
+        fail(f"{fmt} {opts} positions lie beyond the format's step: {json.dumps(out)}")
+    return out
+
+
 class sor_stage_spy:
     """Rows into and out of the port's SOR stage (``filters.remove_flyers``)
     while active."""
@@ -398,6 +475,7 @@ def phase_main_path(sor, smi):
                              sor_in=sor_in, sor_removed=sor_in - sor_out,
                              stages_s=conv.timer.report())
             log(f"[main] ply -> {fmt} on {smi}: {json.dumps(runs[fmt])}")
+            runs[fmt]["sha256"] = file_digest(out)
             os.unlink(out)
     finally:
         sor._sor_window_loop_kernel = wrapper
@@ -405,8 +483,58 @@ def phase_main_path(sor, smi):
         fail("ply -> splat and ply -> 3dgs kept different splats")
     if runs["splat"]["launches"] != runs["3dgs"]["launches"]:
         fail("ply -> splat and ply -> 3dgs launched K1 a different number of times")
-    os.unlink(src)
-    return runs, seen[0]
+    for label, fmt, opts in MAIN_CODECS:
+        out = os.path.join(OUT_DIR, f"out_main_{label}{EXT[fmt]}")
+        conv = Converter(src, out, fmt, device=DEVICE)
+        sor.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        cloud = conv.run(**MAIN_FLAGS, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sor.KERNEL_LAUNCHES
+        if launches != 1:
+            fail(f"ply -> {label} launched K1 {launches} times, not once")
+        if cloud.n != runs["splat"]["kept"]:
+            fail(f"ply -> {label} kept {cloud.n} splats, ply -> splat {runs['splat']['kept']}")
+        runs[label] = dict(kept=cloud.n, wall_s=wall, launches=launches,
+                           bytes=os.path.getsize(out), stages_s=conv.timer.report(),
+                           check=check_codec_output(fmt, opts, out, conv.processed_cloud))
+        runs[label]["sha256"] = file_digest(out)
+        log(f"[main] ply -> {label} on {smi}: {json.dumps(runs[label])}")
+        os.unlink(out)
+    return runs, seen[0], src
+
+
+def phase_batch(sor, smi, src, runs):
+    """convert_batch of the main scene on the card: one read and filter
+    chain, so one K1 launch, and every file byte-identical to the standalone
+    card conversion of its format."""
+    from gsconverter_tpu_torch.batch import convert_batch
+
+    standalone = {"3dgs": "3dgs", "splat": "splat", "ksplat": f"ksplat_l{BATCH_LEVEL}",
+                  "spz": "spz", "compressed_ply": "compressed_ply"}
+    out_dir = os.path.join(OUT_DIR, "batch")
+    sor.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = convert_batch(src, out_dir, list(BATCH_FORMATS), device=DEVICE,
+                         compression_level=BATCH_LEVEL, **MAIN_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sor.KERNEL_LAUNCHES
+    same = {fmt: file_digest(out) == runs[standalone[fmt]]["sha256"] for _, fmt, out in done}
+    r = dict(formats=[fmt for _, fmt, _ in done], wall_s=wall, launches=launches,
+             identical_to_standalone=same,
+             standalone_wall_sum_s=sum(runs[standalone[f]]["wall_s"] for f in BATCH_FORMATS))
+    log(f"[batch] ply -> {', '.join(r['formats'])} on {smi}: {json.dumps(r)}")
+    log("[batch] parquet: not driven on the card (the codec has no device stage "
+        "and needs pandas); tests/test_torch_codecs.py and tests/test_torch_batch.py "
+        "hold it on the CPU")
+    if launches != 1:
+        fail(f"the batch launched K1 {launches} times, not once")
+    if sorted(same) != sorted(BATCH_FORMATS) or not all(same.values()):
+        fail(f"batch files differ from the standalone card runs: {json.dumps(same)}")
+    shutil.rmtree(out_dir)
+    return r
 
 
 def phase_small_agreement(sor):
@@ -439,6 +567,22 @@ def phase_small_agreement(sor):
         fail("SOR removed no row of the 20k scene")
     if not same and abs(gpu["kept"] - cpu["kept"]) > 0.001 * 20_000:
         fail("the 20k scene differs between cuda and cpu by more than 0.1%")
+    codecs = {}
+    for label, fmt, opts in MAIN_CODECS:
+        data = {}
+        for dev in (DEVICE, "cpu"):
+            path = os.path.join(OUT_DIR, f"small_{label}_{dev}{EXT[fmt]}")
+            sor.KERNEL_LAUNCHES = 0
+            cloud = convert(src, path, fmt, device=dev, **SOR_FLAGS, **opts)
+            data[dev] = (cloud.n, file_digest(path), sor.KERNEL_LAUNCHES)
+            os.unlink(path)
+        codecs[label] = data[DEVICE][:2] == data["cpu"][:2]
+        if data[DEVICE][2] != 1:
+            fail(f"the 20k scene to {label} launched K1 {data[DEVICE][2]} times, not once")
+    log(f"[small] 20k scene, cuda vs cpu byte-identical: {json.dumps(codecs)}")
+    if not all(codecs.values()):
+        fail(f"the 20k scene's files differ between cuda and cpu: {json.dumps(codecs)}")
+    os.unlink(src)
     return same
 
 
@@ -825,7 +969,9 @@ def main():
     # 3. K1 at the SOR bench's settings
     settings, generic = phase_k1_settings(sor)
     # 4. the main path
-    runs, (spos, k, window, iters) = phase_main_path(sor, smi)
+    runs, (spos, k, window, iters), main_src = phase_main_path(sor, smi)
+    batch = phase_batch(sor, smi, main_src, runs)
+    os.unlink(main_src)
     small_same = phase_small_agreement(sor)
     # 5. K1 on the main path's own input
     real = spos[:, 0] < sor._D_VALID_MAX
@@ -849,6 +995,9 @@ def main():
         "source": "gsconverter_tpu_torch/csrc/sor_window.cu",
         "replaces": "gsconverter_tpu/ops/sor.py:315",
         "launches": runs["splat"]["launches"],
+        # one a conversion on every path of config 2, and one a batch scene
+        "launches_by_path": dict({label: run["launches"] for label, run in runs.items()},
+                                 batch=batch["launches"]),
         "max_abs_err": r["max_abs_err"],
         "max_rel": r["max_rel"],
         "ms": r["kernel_ms"],  # the key the harness reads

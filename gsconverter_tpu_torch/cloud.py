@@ -218,6 +218,25 @@ class SplatCloud:
             out[:, :, :dim] = flat.reshape(n, 3, dim)
         return out
 
+    # ------------------------------------------------------------ factories
+    @classmethod
+    def zeros(cls, n: int, active_sh_degree: int = 3, rgb: bool = False) -> "SplatCloud":
+        """An n-splat host cloud of zeros with identity rotations."""
+        f32 = np.float32
+        quat = np.zeros((n, 4), f32)
+        quat[:, 0] = 1.0
+        return cls(
+            pos=np.zeros((n, 3), f32),
+            sh_dc=np.zeros((n, 3), f32),
+            sh_rest=np.zeros((n, 3, MAX_SH_DIM), f32),
+            opacity=np.zeros((n,), f32),
+            log_scale=np.zeros((n, 3), f32),
+            quat=quat,
+            normal=np.zeros((n, 3), f32),
+            rgb=np.zeros((n, 3), np.uint8) if rgb else None,
+            active_sh_degree=active_sh_degree,
+        )
+
     # --------------------------------------------------------- select/mask
     def select(self, idx) -> "SplatCloud":
         """Gather rows by index array (or boolean keep-mask).

@@ -24,7 +24,7 @@ import torch
 from . import config as config_mod
 from .cloud import SplatCloud
 from .config import ConvertOptions, resolve_device
-from .formats import NOT_PORTED, get_handler
+from .formats import get_handler
 from .formats.base import BaseFormat
 from .ops import filters, sh
 from .utils import ply as ply_io
@@ -83,8 +83,6 @@ class Converter:
                 f"Unknown target format '{self.target_format}'. "
                 f"Supported: {', '.join(VALID_FORMATS)}"
             )
-        if self.target_format in NOT_PORTED:
-            get_handler(self.target_format)  # raises NotImplementedError
         self.device = resolve_device(device)
         self.cloud: SplatCloud | None = None
         self.processed_cloud: SplatCloud | None = None  # pre-RGB, post-filter
@@ -264,7 +262,7 @@ class Converter:
         return cloud
 
     def _finalize_write(self, cloud: SplatCloud, opts: ConvertOptions,
-                        kwargs: dict, pbar) -> SplatCloud:
+                        kwargs: dict, pbar=None) -> SplatCloud:
         """RGB policy + extras policy + target write (run() steps 5-6)."""
         if (self.target_format in FORMATS_NEEDING_RGB and not cloud.has_rgb) or opts.rgb:
             if not cloud.has_rgb:
@@ -273,10 +271,12 @@ class Converter:
                     "Auto-calculating from SH..."
                 )
                 cloud = sh.add_rgb(cloud)
-        pbar.update(5)
+        if pbar:
+            pbar.update(5)
         self.cloud = cloud
 
-        pbar.set_description(f"Writing {self.target_format.upper()}")
+        if pbar:
+            pbar.set_description(f"Writing {self.target_format.upper()}")
         write_kwargs = dict(kwargs)
         extras = getattr(self.source_handler, "extra_elements", ()) if self.source_handler else ()
         if opts.maintain_extra_elements:
@@ -303,10 +303,36 @@ class Converter:
         write_kwargs["device"] = self.device  # codecs without device stages ignore it
         with self.timer.stage("write", cloud.n):
             target_handler.write(cloud, self.output_path, **write_kwargs)
-        pbar.update(40)
-        pbar.refresh()
-        pbar.set_description("Completed")
+        if pbar:
+            pbar.update(40)
+            pbar.refresh()
+            pbar.set_description("Completed")
         return cloud
+
+    def write_processed(self, cloud: SplatCloud, source_handler=None,
+                        **kwargs: Any) -> SplatCloud:
+        """Write an already filtered cloud (``processed_cloud`` of another
+        converter's ``run``) to this converter's target — the batch fast
+        path: one read and filter chain per scene, N format writes.
+
+        Applies this format's own SH cap (min(content, requested, format
+        limit)) and its RGB and extras policies, so the output is identical
+        to a full ``run()`` on the same source.
+        """
+        opts = _opts_from_kwargs(kwargs)
+        if source_handler is not None:
+            self.source_handler = source_handler
+        source_deg = sh.detect_active_degree(cloud)
+        final_deg = min(
+            source_deg,
+            FORMAT_MAX_SH.get(self.target_format, 3),
+            3 if opts.sh_level is None else int(opts.sh_level),
+        )
+        if final_deg < source_deg:
+            cloud = sh.cap_degree(cloud, final_deg)
+        out = self._finalize_write(cloud, opts, kwargs)
+        status_print(f"Conversion completed: Saved to {self.output_path}")
+        return out
 
 
 def _opts_from_kwargs(kwargs: dict) -> ConvertOptions:

@@ -4,10 +4,6 @@ Mirrors the reference's ``BaseFormat`` ABC.  Codecs read into / write from
 the canonical :class:`SplatCloud`.  Reader side-channel state matches the
 reference: ``self.extra_elements`` (non-vertex PLY elements) and
 ``self.metadata`` — carried on the handler instance.
-
-Formats the JAX package supports but this package has not ported yet are
-known by name: asking for one raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,14 +14,6 @@ from ..cloud import SplatCloud
 
 _REGISTRY: dict[str, type["BaseFormat"]] = {}
 
-#: formats of gsconverter_tpu still to port -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "ksplat": "queue 1, formats/ksplat.py",
-    "spz": "queue 1, remaining codecs + batch",
-    "compressed_ply": "queue 1, remaining codecs + batch",
-    "parquet": "queue 1, remaining codecs + batch",
-}
-
 
 def register(cls: type["BaseFormat"]) -> type["BaseFormat"]:
     _REGISTRY[cls.name] = cls
@@ -34,11 +22,6 @@ def register(cls: type["BaseFormat"]) -> type["BaseFormat"]:
 
 def get_handler(name: str) -> "BaseFormat":
     """Factory (reference converter.py:74-92)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"format '{name}' is not ported to gsconverter_tpu_torch yet "
-            f"(ROADMAP {NOT_PORTED[name]})"
-        )
     try:
         return _REGISTRY[name]()
     except KeyError:

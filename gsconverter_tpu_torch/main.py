@@ -58,6 +58,27 @@ def report_info(input_path: str) -> None:
         if extras:
             print(f"Extra Elements: {', '.join(extras)}")
 
+        if conv.source_format == "ksplat":
+            meta = conv.source_handler.metadata
+            if meta:
+                print(f"KSplat Version: {meta.get('v_major')}.{meta.get('v_minor')}")
+                print(f"Compression Level: {meta.get('compression_level')}")
+                if meta.get("compression_level", 0) >= 1 and meta.get("sections"):
+                    s0 = meta["sections"][0]
+                    print(f"Bucket Size: {s0.get('bucketSize')}")
+                    print(f"Block Size: {s0.get('bucketBlockSize')}")
+                if "min_sh" in meta:
+                    print(f"SH Range: [{meta['min_sh']:.2f}, {meta['max_sh']:.2f}]")
+        if conv.source_format == "compressed_ply":
+            meta = conv.source_handler.metadata
+            print("Quantization: Chunk-based (256 splats/chunk)")
+            print(f"Chunks: {meta.get('chunks', 0):,}")
+            print("Position/Scale Packing: 11-10-11 bit")
+            print("Rotation Packing: 2-10-10-10 bit")
+            print("Color Packing: 8-8-8-8 bit")
+            if meta.get("sh_degree", 0) > 0:
+                print("SH Quantization: 8-bit ([-4, 4] range)")
+
         print(f"Format Detected: {conv.source_format.upper()}")
         n = cloud.n
         print(f"Points: {n:,}")
@@ -93,8 +114,9 @@ def report_info(input_path: str) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=(
-            "Universal 3D Gaussian Splatting Converter (PyTorch/CUDA). Ported so "
-            "far: 3DGS (.ply), CloudCompare (.ply), Splat (.splat), SOG (.sog)."
+            "Universal 3D Gaussian Splatting Converter (PyTorch/CUDA). Supports: "
+            "3DGS (.ply), CloudCompare (.ply), KSplat (.ksplat), Splat (.splat), "
+            "SPZ (.spz), SOG (.sog), Parquet (.parquet), Compressed PLY (.ply)."
         )
     )
     parser.add_argument("--input", "-i", required=True, help="Path to the source point cloud file.")

@@ -161,6 +161,40 @@ def test_convert_on_card_matches_cpu(card, tmp_path):
     assert out["cuda"][:2] == out["cpu"][:2]
 
 
+def test_convert_batch_on_card_launches_k1_once(card, tmp_path):
+    """One K1 launch for a scene however many formats; every file
+    byte-identical to a standalone conversion on the card."""
+    from gsconverter_tpu_torch.batch import convert_batch
+
+    r = np.random.default_rng(4)
+    n = 6000
+    pos = np.concatenate([r.normal(0, 1.2, (n - 40, 3)),
+                          r.uniform(-40.0, 40.0, (40, 3))]).astype(np.float32)
+    quat = r.normal(0, 1, (n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    rest = np.zeros((n, 3, 15), np.float32)
+    rest[:, :, :8] = r.normal(0, 0.1, (n, 3, 8))
+    cloud = SplatCloud(
+        pos=pos, sh_dc=r.normal(0, 0.5, (n, 3)).astype(np.float32), sh_rest=rest,
+        opacity=r.normal(1, 2, (n,)).astype(np.float32),
+        log_scale=r.normal(-4, 0.5, (n, 3)).astype(np.float32),
+        quat=quat, normal=np.zeros((n, 3), np.float32), active_sh_degree=2)
+    src = str(tmp_path / "scene.ply")
+    get_handler("3dgs").write(cloud, src)
+    fmts = ["3dgs", "splat", "ksplat", "spz", "compressed_ply"]
+    kw = dict(min_opacity=5, sor_intensity=10, compression_level=1)
+    launches = sor.KERNEL_LAUNCHES
+    done = convert_batch(src, str(tmp_path / "b"), fmts, device="cuda", **kw)
+    assert sor.KERNEL_LAUNCHES == launches + 1
+    assert sorted(d[1] for d in done) == sorted(fmts)
+    for _, fmt, out in done:
+        solo = str(tmp_path / f"solo_{fmt}{get_handler(fmt).extension}")
+        launches = sor.KERNEL_LAUNCHES
+        convert(src, solo, fmt, device="cuda", **kw)
+        assert sor.KERNEL_LAUNCHES == launches + 1
+        assert open(solo, "rb").read() == open(out, "rb").read(), fmt
+
+
 # ------------------------------------------------------------ K2, K3, K4
 
 

@@ -211,7 +211,13 @@ def test_extra_elements_through_converter(tmp_path, jax_one_device):
         assert ("intrinsic" in torch_ply.read(ot)) == keep
 
 
-def test_unported_formats_raise():
-    for fmt in ("ksplat", "spz", "parquet", "compressed_ply"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_handler(fmt)
+def test_every_valid_format_has_a_handler():
+    from gsconverter_tpu_torch.converter import EXT_MAP, VALID_FORMATS
+
+    assert len(VALID_FORMATS) == 8
+    for fmt in VALID_FORMATS:
+        handler = torch_handler(fmt)
+        assert handler.name == fmt and handler.extension == EXT_MAP[fmt]
+        assert handler.max_sh_degree == jax_handler(fmt).max_sh_degree
+    with pytest.raises(ValueError, match="Unsupported format"):
+        torch_handler("nope")
