@@ -4,8 +4,9 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit; TF32 off;
-  2. build: csrc/sor_window.cu (K1), csrc/kmeans.cu (K2's labels, K3)
-     and csrc/kmeans_update.cu (K4, also K2's sum stage), one nvcc each,
+  2. build: csrc/sor_window.cu (K1), csrc/kmeans.cu (K2's labels, K3),
+     csrc/kmeans_update.cu (K4, also K2's sum stage) and csrc/composite.cu
+     (K5, K6: tile compositing and its backward), one nvcc each,
      all started together, with ptxas's registers, shared memory, spills;
   3. K1 against its plain PyTorch version at two settings on the card
      (4,194,304 points at k=25, sigma=10.5: one pass, window 256, 7 steps;
@@ -51,7 +52,22 @@ Phases (any failure ends the run with a non-zero exit):
      within 1.02x of the same fit through K2's plain version; then a
      20k-splat scene to .sog on "cuda" and on "cpu": all but the palette
      entries byte-identical, the palette's reconstruction error within
-     1.25x of the CPU's.
+     1.25x of the CPU's;
+  8. the renderer at BASELINE config 4's size (bench.py's render workload):
+     a 1M-splat scene minted from seed 0 (SH degree 0) at 1088 x 1920 from
+     (0, 0, 5), 60 degrees; auto_budget(band_chunk=128) and its report; the
+     banded windowed render (tile_chunk=128, block_m=64) and the gradient of
+     sum(img^2) with respect to opacity, with K5's and K6's launches (one
+     each per band); forward, forward+gradient and K5/K6 per band timed
+     (median of 5 by CUDA events); the band with the largest budget held
+     against the plain versions with per-tile exit, every splat-level
+     gradient against the same render through those plain versions, the
+     frame against the plain path (chunk-wide exit) on the card's tensors
+     within T_EPS * (max color + max |bg|) + 1e-5 and against the CPU
+     plain path by PSNR (>= 60 dB); the 64 x 64 windowed-vs-exact
+     crop at full N (>= 35 dB); the scene's .spz round trip (> 30 dB);
+     examples/fit_scene.py's scene and 200 steps (fitted PSNR > perturbed
+     + 5 dB); 3 timed fit steps at full size with the loss falling.
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -112,6 +128,25 @@ K34_N, K34_D, K34_K = 1_048_576, 24, 4096
 # (rows, centroids) of K3's u8-grid case with exact ties, at D = K34_D
 K3_GRID = (262_144, 600)
 SMALL_SOG_N = 20_000
+# config 4 (bench.py:570-572): splats, height, width; the bench's render
+# settings; the crop camera's size and field of view
+RENDER_N, RENDER_H, RENDER_W = 1_000_000, 1088, 1920
+RENDER_CHUNK, RENDER_BM = 128, 64
+CROP_SIZE, CROP_FOV = 64, 20.0
+FIT_STEPS, FIT_LR = 200, 5e-3  # examples/fit_scene.py
+# the full-size training steps: Adam's first steps move every parameter by
+# about lr, so lr stays well below the scene's splat scale (exp(-5.5))
+TRAIN_LR = 1e-4
+# FP32 instructions a live (candidate, pixel) pair needs, expf counted as 4
+# (its range reduction and scaling; the MUFU op aside).  K5: dx, dy (2),
+# power (10), min (1), expf (4), raw, clamp, zero test (4), weight (2),
+# rgb (3), 1 - a and the block product (2): 28.  K6, with alpha computed
+# once: alpha (21), T_i and w (2), g . color (3), s and its prefix (3),
+# R_i and d_a with its division (7), the live mask (3), d_gauss and
+# d_power (4), the mean and conic terms (15), the color terms (3), d_alpha
+# (1), the block product (2), and one add a field for the sums over the
+# tile's pixels (9): 73.
+K5_PAIR_OPS, K6_PAIR_OPS = 28, 73
 # the main path's other codecs: (label, format, write options)
 MAIN_CODECS = (("ksplat_l0", "ksplat", dict(compression_level=0)),
                ("ksplat_l1", "ksplat", dict(compression_level=1)),
@@ -933,6 +968,470 @@ def phase_small_sog():
     return r
 
 
+# ------------------------------------------------------------ config 4
+
+
+def cuda_median_ms(fn, reps=5, warmup=1):
+    """Median of ``reps`` single-call times by CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_profile(fn, top=10):
+    """One call of ``fn`` under torch.profiler after a warm-up: its wall
+    time (host clock, synchronised), the device time summed over its
+    kernels, the busy share (device / wall) and the ``top`` kernels and
+    copies by self device time (us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue  # an operator's row repeats its kernels' time
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            rows.append((evt.key[:60], float(us), int(evt.count)))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3, busy_share=busy / wall_us,
+                top=[{"name": n, "us": us, "calls": c} for n, us, c in rows[:top]])
+
+
+def render_bench_scene(n, seed=0):
+    """bench.py's render scene (:306-320) as a host cloud: N(0, 1)
+    positions, SH degree 0, logit opacity N(-1, 1), log-scale N(-5.5, 0.3),
+    identity rotations."""
+    from gsconverter_tpu_torch.cloud import SplatCloud
+
+    rr = np.random.default_rng(seed)
+    return SplatCloud(
+        pos=rr.normal(0, 1.0, (n, 3)).astype(np.float32),
+        sh_dc=rr.normal(0, 0.5, (n, 3)).astype(np.float32),
+        sh_rest=np.zeros((n, 3, 15), np.float32),
+        opacity=rr.normal(-1, 1, (n,)).astype(np.float32),
+        log_scale=rr.normal(-5.5, 0.3, (n, 3)).astype(np.float32),
+        quat=np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)),
+        normal=np.zeros((n, 3), np.float32),
+        active_sh_degree=0,
+    )
+
+
+def fit_demo_scene(n=600, seed=3):
+    """examples/fit_scene.py's scene: a colored ring and a core cluster."""
+    from gsconverter_tpu_torch.cloud import SplatCloud
+
+    r = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, n // 2, endpoint=False)
+    ring = np.stack([np.cos(t) * 1.5, np.sin(t) * 1.5, np.zeros_like(t)], 1)
+    core = r.normal(0, 0.4, (n - n // 2, 3))
+    hue = np.concatenate([t / (2 * np.pi), r.uniform(0, 1, n - n // 2)])
+    sh_dc = np.stack([np.cos(hue * 2 * np.pi), np.cos((hue + 1 / 3) * 2 * np.pi),
+                      np.cos((hue + 2 / 3) * 2 * np.pi)], 1).astype(np.float32)
+    quat = r.normal(0, 1, (n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    return SplatCloud(
+        pos=np.concatenate([ring, core]).astype(np.float32), sh_dc=sh_dc,
+        sh_rest=np.zeros((n, 3, 15), np.float32),
+        opacity=np.full((n,), 1.5, np.float32),
+        log_scale=np.full((n, 3), -2.5, np.float32), quat=quat,
+        normal=np.zeros((n, 3), np.float32), active_sh_degree=0)
+
+
+class composite_spy:
+    """The arguments of every K5 and K6 launch while active (references)."""
+
+    def __init__(self, rz):
+        self.rz, self.fwd, self.bwd = rz, [], []
+
+    def __enter__(self):
+        self.orig = fwd, bwd = self.rz._composite_fwd_kernel, self.rz._composite_bwd_kernel
+
+        def spy_fwd(*args):
+            self.fwd.append(args)
+            return fwd(*args)
+
+        def spy_bwd(*args):
+            self.bwd.append(args)
+            return bwd(*args)
+
+        self.rz._composite_fwd_kernel, self.rz._composite_bwd_kernel = spy_fwd, spy_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.rz._composite_fwd_kernel, self.rz._composite_bwd_kernel = self.orig
+        return False
+
+
+class plain_composite:
+    """Route K5's and K6's wrappers through their plain versions with
+    per-tile exit (the kernels' semantics) while active."""
+
+    def __init__(self, rz):
+        self.rz = rz
+
+    def __enter__(self):
+        rz = self.rz
+        self.orig = rz._composite_fwd_kernel, rz._composite_bwd_kernel
+
+        def fwd(bm, g, a, o, c, bg):
+            return rz._composite_fwd_ref(bm, g, a, o, c, bg, per_tile=True)
+
+        def bwd(*args):
+            d_geo, d_al, d_bg = rz._composite_bwd_ref(*args)
+            return d_geo, d_al, d_bg[None, :]
+
+        rz._composite_fwd_kernel, rz._composite_bwd_kernel = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.rz._composite_fwd_kernel, self.rz._composite_bwd_kernel = self.orig
+        return False
+
+
+class plain_path:
+    """The CPU path's compositing on the card's own tensors while active:
+    JAX's chunks of ``tile_chunk`` tiles (pads included) with their
+    chunk-wide exit, through the plain forward.  Projection and binning
+    are the card's, so every alpha is bit for bit the kernels'; only the
+    exit rule differs."""
+
+    def __init__(self, rz):
+        self.rz = rz
+
+    def __enter__(self):
+        rz = self.rz
+        self.orig = groups, _ = rz._launch_groups, rz._composite
+
+        def chunk_groups(n_tiles, tile_chunk, on_card, *args):
+            return groups(n_tiles, tile_chunk, False, *args)
+
+        def chunk_composite(bm, g, a, o, c, bg, per_tile=True):
+            return rz._composite_fwd_ref(bm, g, a, o, c, bg, per_tile=False)[0]
+
+        rz._launch_groups, rz._composite = chunk_groups, chunk_composite
+        return self
+
+    def __exit__(self, *exc):
+        self.rz._launch_groups, self.rz._composite = self.orig
+        return False
+
+
+def composite_bound_ms(kernel, counts, n_done, bm):
+    """Least time for K5's or K6's function on one band: the FP32
+    instructions of its live (candidate, pixel) pairs (sum over tiles of
+    min(count, n_done * BM) * 256) over their issue rate, or its bytes (the
+    live window rows, 36 B each, read once; the per-pixel outputs and saved
+    transmittances; K6 also its gradient rows) over the memory rate."""
+    c = counts.numel()
+    rows = int(torch.minimum(counts.long(), n_done.long() * bm).sum())
+    blocks = int(n_done.long().sum())
+    if kernel == "K5":
+        ops = rows * 256 * K5_PAIR_OPS
+        nbytes = rows * 36 + c * 256 * 16 + blocks * 256 * 4 + c * 8
+    else:
+        ops = rows * 256 * K6_PAIR_OPS
+        nbytes = rows * 72 + c * 256 * 16 + blocks * 256 * 4 + c * 16
+    t_ops, t_bytes = ops / FP32_INSTR_RATE, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            rows * 256)
+
+
+def compare_band(rz, fwd_args, grgb):
+    """K5 and K6 against their plain versions with per-tile exit on one
+    band: the image within 2e-5, per-entry gradients within 1e-4 * max|g|
+    of each field; a tile whose exit decision differs is reported and
+    allowed T_EPS * (max color + max |bg|)."""
+    bm, geo, al, origin, counts, bg = fwd_args
+    k = rz._composite_fwd_kernel(*fwd_args)
+    torch.cuda.synchronize()
+    p = rz._composite_fwd_ref(bm, geo, al, origin, counts, bg, per_tile=True)
+    flip = k[3] != p[3]
+    same = ~flip
+    err = (k[0] - p[0]).abs().amax((1, 2))
+    allow = rz.T_EPS * (float(geo[..., 5:8].max()) + float(bg.abs().max()))
+    out = dict(tiles=counts.numel(), m=geo.shape[1], bm=bm, exit_flips=int(flip.sum()),
+               rgb_max_abs_err=float(err[same].max()),
+               rgb_flip_max_abs_err=float(err[flip].max()) if flip.any() else 0.0,
+               flip_allowance=allow,
+               n_done_equal=bool(torch.equal(k[3], p[3])))
+    dk = rz._composite_bwd_kernel(bm, geo, al, origin, bg, k[1], k[2], k[3], grgb)
+    torch.cuda.synchronize()
+    dp = rz._composite_bwd_ref(bm, geo, al, origin, bg, k[1], k[2], k[3], grgb)
+    rows = same[:, None].expand(-1, geo.shape[1])
+    cols = {"mean": slice(0, 2), "conic": slice(2, 5), "color": slice(5, 8)}
+    fields = {f: dk[0][..., sl] - dp[0][..., sl] for f, sl in cols.items()}
+    fields["alpha"] = dk[1] - dp[1]
+    scale = {f: dp[0][..., sl] for f, sl in cols.items()}
+    scale["alpha"] = dp[1]
+    out["grad_rel_err"] = {
+        f: float(d[rows].abs().max() / scale[f][rows].abs().max().clamp_min(1e-30))
+        for f, d in fields.items()}
+    out["grad_max_abs_err"] = max(float(d[rows].abs().max()) for d in fields.values())
+    out["d_bg_rel_err"] = float((dk[2].sum(0) - dp[2]).abs().max()
+                                / dp[2].abs().max().clamp_min(1e-30))
+    out["repeat_identical"] = bool(
+        torch.equal(k[0], rz._composite_fwd_kernel(*fwd_args)[0])
+        and torch.equal(dk[0], rz._composite_bwd_kernel(bm, geo, al, origin, bg, k[1], k[2],
+                                                        k[3], grgb)[0]))
+    if out["rgb_max_abs_err"] > 2e-5 or out["rgb_flip_max_abs_err"] > allow + 2e-5 \
+            or max(out["grad_rel_err"].values()) > 1e-4 or out["d_bg_rel_err"] > 1e-4 \
+            or not out["repeat_identical"]:
+        fail(f"K5/K6 disagree with their plain versions on a band: {json.dumps(out)}")
+    return out
+
+
+def time_bands(rz, fwd_calls, bwd_calls):
+    """Per band: K5 and K6 per launch (median of 5), their plain versions
+    (one call), bounds; K6 is timed on the cotangent the main path gave."""
+    bands = []
+    for args in fwd_calls:
+        bm, geo, al, origin, counts, bg = args
+        k = rz._composite_fwd_kernel(*args)
+        bargs = next(b for b in bwd_calls if b[1].shape == geo.shape)
+        grgb = bargs[-1]
+        b5, by5, pairs = composite_bound_ms("K5", counts, k[3], bm)
+        b6, by6, _ = composite_bound_ms("K6", counts, k[3], bm)
+        saved = (bm, geo, al, origin, bg, k[1], k[2], k[3], grgb)
+        bands.append(dict(
+            tiles=counts.numel(), m=geo.shape[1], live_pairs=pairs,
+            k5_ms=cuda_median_ms(lambda: rz._composite_fwd_kernel(*args)),
+            k6_ms=cuda_median_ms(lambda: rz._composite_bwd_kernel(*saved)),
+            k5_plain_ms=cuda_median_ms(
+                lambda: rz._composite_fwd_ref(bm, geo, al, origin, counts, bg, True),
+                reps=1, warmup=0),
+            k6_plain_ms=cuda_median_ms(lambda: rz._composite_bwd_ref(*saved), reps=1,
+                                       warmup=0),
+            k5_bound_ms=b5, k5_bound_by=by5, k6_bound_ms=b6, k6_bound_by=by6))
+    return bands
+
+
+def phase_render(smi):
+    """BASELINE config 4 at full size on the card: the bench's render
+    workload, its checks, and the training step."""
+    from gsconverter_tpu_torch.formats import get_handler
+    from gsconverter_tpu_torch.render import rasterizer as rz
+    from gsconverter_tpu_torch.render import train
+
+    out = {}
+    t0 = time.perf_counter()
+    host = render_bench_scene(RENDER_N)
+    cloud = host.to_device(DEVICE)
+    cam = rz.Camera.look_at(eye=[0, 0, 5.0], target=[0, 0, 0], fov_deg=60.0,
+                            width=RENDER_W, height=RENDER_H)
+    torch.cuda.synchronize()
+    log(f"[render] minted {RENDER_N}-splat scene in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    budget = rz.auto_budget(cloud, cam, band_chunk=RENDER_CHUNK)
+    out["auto_budget_s"] = time.perf_counter() - t0
+    out["budget"] = {k: v for k, v in budget.items() if k not in ("tile_order", "band_plan")}
+    out["band_plan"] = [list(b) for b in budget["band_plan"]]
+    log(f"[render] budget on {smi}: {json.dumps(out['budget'])}; bands {out['band_plan']}")
+    kw = dict(binning="windowed", max_global=budget["max_global"], tile_chunk=RENDER_CHUNK,
+              block_m=RENDER_BM, tile_order=budget["tile_order"],
+              band_plan=budget["band_plan"])
+    n_bands = len(budget["band_plan"])
+
+    # the main path: one forward and the gradient of sum(img^2) w.r.t. opacity
+    op = cloud.opacity.clone().requires_grad_(True)
+    rz.LAUNCHES.update(dict.fromkeys(rz.LAUNCHES, 0))
+    with composite_spy(rz) as spy:
+        img = rz.render(cloud.replace(opacity=op), cam, **kw)
+        torch.sum(img * img).backward()
+        torch.cuda.synchronize()
+    launches = dict(rz.LAUNCHES)
+    out["launches"] = launches
+    if launches != {"composite_fwd": n_bands, "composite_bwd": n_bands}:
+        fail(f"the render launched {launches}, not K5 and K6 once for each of "
+             f"{n_bands} bands")
+    img = img.detach()
+    if tuple(img.shape) != (RENDER_H, RENDER_W, 3) or not bool(torch.isfinite(img).all()) \
+            or not bool(torch.isfinite(op.grad).all()) or float(op.grad.abs().max()) <= 0:
+        fail("the render gave a non-finite or empty image or gradient")
+    out["img_mean"] = float(img.mean())
+
+    # times: forward, forward + gradient, median of 5 after a warm-up
+    def fwd():
+        with torch.no_grad():
+            return rz.render(cloud, cam, **kw)
+
+    def grad():
+        op.grad = None
+        im = rz.render(cloud.replace(opacity=op), cam, **kw)
+        torch.sum(im * im).backward()
+
+    out["fwd_ms"] = cuda_median_ms(fwd)
+    out["fwd_grad_ms"] = cuda_median_ms(grad)
+    out["fwd_profile"] = device_profile(fwd)
+    out["fwd_grad_profile"] = device_profile(grad)
+    # the profiler's host overhead stretches its own wall: the busy share
+    # of a timed call is the kernels' device time over the timed median
+    out["fwd_busy_share"] = out["fwd_profile"]["device_ms"] / out["fwd_ms"]
+    out["fwd_grad_busy_share"] = out["fwd_grad_profile"]["device_ms"] / out["fwd_grad_ms"]
+    log(f"[render] {RENDER_N} splats at {RENDER_H}x{RENDER_W} on {smi}: "
+        f"fwd {out['fwd_ms']:.3f} ms, fwd+grad {out['fwd_grad_ms']:.3f} ms, "
+        f"launches {json.dumps(launches)}")
+
+    # K5 and K6 on every band of the frame, and the largest band held
+    # against their plain versions
+    with torch.no_grad():
+        out["bands"] = time_bands(rz, spy.fwd, spy.bwd)
+        big = max(spy.fwd, key=lambda a: a[1].shape[1])
+        grgb = next(b for b in spy.bwd if b[1].shape == big[1].shape)[-1]
+        out["band_check"] = compare_band(rz, big, grgb)
+    log(f"[render] bands: {json.dumps(out['bands'])}")
+    for key in ("fwd_profile", "fwd_grad_profile"):
+        log(f"[render] {key} on {smi}: {json.dumps(out[key])}")
+    log(f"[render] largest band vs plain: {json.dumps(out['band_check'])}")
+    del spy, big, grgb
+
+    # every splat-level gradient, kernels against the plain versions
+    names = ("pos", "sh_dc", "opacity", "log_scale", "quat")
+
+    def all_grads():
+        ps = {k: getattr(cloud, k).clone().requires_grad_(True) for k in names}
+        im = rz.render(cloud.replace(**ps), cam, **kw)
+        torch.sum(im * im).backward()
+        return im.detach(), {k: v.grad for k, v in ps.items()}
+
+    img_k, g_k = all_grads()
+    with plain_composite(rz):
+        img_p, g_p = all_grads()
+    splat = {k: float((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-30))
+             for k in names}
+    out["splat_grad_rel_err"] = splat
+    out["frame_vs_plain_per_tile_max_abs"] = float((img_k - img_p).abs().max())
+    log(f"[render] splat-level gradients vs the plain versions: {json.dumps(splat)}")
+    if max(splat.values()) > 2e-4:
+        fail(f"splat-level gradients differ from the plain versions': {json.dumps(splat)}")
+    del g_k, g_p, img_k, img_p
+
+    # the frame against the plain path (JAX's chunk-wide exit), on the
+    # card's tensors: the two differ only where a tile exits before its
+    # chunk, by at most T_EPS * (max color + max |bg|)
+    max_color = float(np.clip(0.5 + 0.28209479177387814 * host.sh_dc, 0, None).max())
+    allow = rz.T_EPS * max_color + 1e-5
+    with torch.no_grad(), plain_path(rz):
+        img_plain = rz.render(cloud, cam, **kw)
+    out["frame_vs_plain_path_max_abs"] = float((img - img_plain).abs().max())
+    out["frame_vs_plain_path_allowance"] = allow
+    # and the CPU plain path on the host cloud: CPU and CUDA exp and
+    # projection roundings differ by ulps, and where raw alpha sits at the
+    # 1/255 step that flips a contribution of about 0.004, so the CPU frame
+    # is held by PSNR
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img_cpu = rz.render(host, cam, device="cpu", **kw)
+    out["cpu_plain_frame_s"] = time.perf_counter() - t0
+    out["frame_vs_cpu_max_abs"] = float((img.cpu() - img_cpu).abs().max())
+    out["frame_vs_cpu_psnr_db"] = float(rz.psnr(img.cpu(), img_cpu))
+    log(f"[render] frame vs the plain path on the card: max abs "
+        f"{out['frame_vs_plain_path_max_abs']:.3g} (allowed {allow:.3g}); vs the CPU plain "
+        f"path: max abs {out['frame_vs_cpu_max_abs']:.3g}, "
+        f"{out['frame_vs_cpu_psnr_db']:.2f} dB, CPU render {out['cpu_plain_frame_s']:.1f} s")
+    if out["frame_vs_plain_path_max_abs"] > allow:
+        fail("the card's frame differs from the plain path beyond T_EPS * max color")
+    if out["frame_vs_cpu_psnr_db"] < 60.0:
+        fail("the card's frame differs from the CPU plain path by more than 60 dB PSNR")
+    del img_cpu, img_plain
+
+    # windowed vs exact crop at full N
+    crop = rz.Camera.look_at(eye=[0, 0, 5.0], target=[0, 0, 0], fov_deg=CROP_FOV,
+                             width=CROP_SIZE, height=CROP_SIZE)
+    cb = rz.auto_budget(cloud, crop, cap=16384)
+    with torch.no_grad():
+        img_w = rz.render(cloud, crop, binning="windowed", max_per_tile=cb["max_per_tile"],
+                          max_global=cb["max_global"], tile_chunk=16)
+        img_e = rz.render(cloud, crop, binning="exact", max_per_tile=cb["max_per_tile"],
+                          tile_chunk=16)
+    out["crop_psnr_db"] = float(rz.psnr(img_w, img_e))  # 120 dB: mse below 1e-12
+    out["crop_max_abs"] = float((img_w - img_e).abs().max())
+    out["crop_budget"] = {k: v for k, v in cb.items() if k not in ("tile_order", "band_plan")}
+    log(f"[render] crop {CROP_SIZE}x{CROP_SIZE} windowed vs exact: "
+        f"{out['crop_psnr_db']:.2f} dB (max abs {out['crop_max_abs']:.3g}), "
+        f"budget {json.dumps(out['crop_budget'])}")
+    if out["crop_psnr_db"] < 35.0:
+        fail(f"crop PSNR {out['crop_psnr_db']:.2f} dB is below 35")
+
+    # the .spz round trip, checked by rendered PSNR
+    path = os.path.join(OUT_DIR, "render_scene.spz")
+    get_handler("spz").write(host, path)
+    back = get_handler("spz").read(path)
+    os.unlink(path)
+    with torch.no_grad():
+        img_b = rz.render(back.to_device(DEVICE), cam, **kw)
+    out["spz_psnr_db"] = float(rz.psnr(img, img_b))
+    log(f"[render] .spz round trip: {out['spz_psnr_db']:.2f} dB")
+    if out["spz_psnr_db"] <= 30.0:
+        fail(f".spz round trip renders at {out['spz_psnr_db']:.2f} dB, not above 30")
+    del back, img_b
+
+    # examples/fit_scene.py: perturb and recover
+    demo = fit_demo_scene()
+    dcam = rz.Camera.look_at(eye=(0, -1.5, -5), target=(0, 0, 0), width=256, height=256)
+    target = rz.render(demo, dcam, max_per_tile=256, device=DEVICE)
+    r = np.random.default_rng(0)
+    perturbed = demo.replace(
+        pos=demo.pos + r.normal(0, 0.05, demo.pos.shape).astype(np.float32),
+        sh_dc=demo.sh_dc * 0.5, opacity=demo.opacity - 1.0)
+    p0 = float(rz.psnr(rz.render(perturbed, dcam, max_per_tile=256, device=DEVICE), target))
+    t0 = time.perf_counter()
+    fitted, losses = train.fit(perturbed, dcam, target, steps=FIT_STEPS, lr=FIT_LR,
+                               max_per_tile=256, device=DEVICE)
+    fit_s = time.perf_counter() - t0
+    p1 = float(rz.psnr(rz.render(fitted, dcam, max_per_tile=256), target))
+    out["fit_demo"] = dict(psnr_perturbed_db=p0, psnr_fitted_db=p1, steps=FIT_STEPS,
+                           loss_first=losses[0], loss_last=losses[-1], wall_s=fit_s)
+    log(f"[render] fit demo: {json.dumps(out['fit_demo'])}")
+    if not p1 > p0 + 5.0:
+        fail(f"the fit demo reached {p1:.2f} dB from {p0:.2f} dB, not +5 dB")
+
+    # three timed training steps at full size
+    base = cloud.replace(sh_dc=cloud.sh_dc + 0.2, opacity=cloud.opacity - 0.3)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in train.params_of(base).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+    step = train.make_train_step(base, cam, opt, params, **kw)
+    step_ms, step_loss = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(img))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_loss.append(loss)
+    out["train_steps"] = dict(ms=step_ms, loss=step_loss)
+    out["train_step_profile"] = device_profile(lambda: step(img))
+    out["train_step_busy_share"] = out["train_step_profile"]["device_ms"] / float(
+        np.median(step_ms))
+    log(f"[render] full-size train steps on {smi}: {json.dumps(out['train_steps'])}")
+    log(f"[render] train_step_profile on {smi}: {json.dumps(out['train_step_profile'])}")
+    if not step_loss[-1] < step_loss[0]:
+        fail(f"the full-size training loss did not fall: {step_loss}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -954,7 +1453,7 @@ def main():
     from gsconverter_tpu_torch.utils import cuda_build
 
     # 2. build: one nvcc per source, all started together
-    sources = ("sor_window", "kmeans", "kmeans_update")
+    sources = ("sor_window", "kmeans", "kmeans_update", "composite")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build, sources))
@@ -984,8 +1483,10 @@ def main():
     # 7. the SOG path
     sog_runs = phase_sog(km, smi)
     small_sog = phase_small_sog()
+    # 8. config 4: the renderer
+    rend = phase_render(smi)
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    log(f"[done] phases 3-7 in {time.perf_counter() - t_all:.1f} s; "
+    log(f"[done] phases 3-8 in {time.perf_counter() - t_all:.1f} s; "
         f"small scene byte-identical={small_same}; "
         f"small .sog cuda/cpu mse {small_sog['mse_cuda']:.6g}/{small_sog['mse_cpu']:.6g}")
 
@@ -1077,6 +1578,35 @@ def main():
         "main_path_shape": {"n": main_k2["chunks"] * main_k2["rows"], "d": main_k2["d"],
                             "k": main_k2["chunks"] * main_k2["k"]},
     }]
+    bands, check = rend["bands"], rend["band_check"]
+    band_shapes = [{"tiles": b["tiles"], "m": b["m"], "live_pairs": b["live_pairs"]}
+                   for b in bands]
+    composite_src = "gsconverter_tpu_torch/csrc/composite.cu"
+    for key, name, replaces, err in (
+            ("k5", "K5 composite_fwd", "gsconverter_tpu/render/rasterizer.py:138",
+             check["rgb_max_abs_err"]),
+            ("k6", "K6 composite_bwd", "gsconverter_tpu/render/rasterizer.py:204",
+             check["grad_max_abs_err"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": composite_src,
+            "replaces": replaces,
+            "launches": rend["launches"][f"composite_{'fwd' if key == 'k5' else 'bwd'}"],
+            "max_abs_err": err,
+            # a frame: the sum over its bands, one launch each
+            "ms": sum(b[f"{key}_ms"] for b in bands),
+            "plain_ms": sum(b[f"{key}_plain_ms"] for b in bands),
+            "bound_ms": sum(b[f"{key}_bound_ms"] for b in bands),
+            "bound_by": ("operations" if all(b[f"{key}_bound_by"] == "operations"
+                                             for b in bands) else "bytes"),
+            "library_ms": None,  # no single PyTorch call composites tiles
+            "per_band_ms": [b[f"{key}_ms"] for b in bands],
+            "shape": {"bands": band_shapes, "block_m": RENDER_BM},
+        })
+    kernels[-2]["band_check"] = check
+    log(f"[render] config 4 on {smi}: " + json.dumps(
+        {k: v for k, v in rend.items() if k not in ("bands", "band_check")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

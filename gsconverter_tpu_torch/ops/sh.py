@@ -9,7 +9,8 @@ Behavior contracts from the reference:
     deliberate sRGB gamma (data_processor.py:300-333).
 
 Residency-generic: numpy leaves compute in numpy, tensor leaves in torch on
-their own device.  ``eval_sh`` waits for the renderer.
+their own device.  ``eval_sh`` (the renderer's view-dependent color) takes
+tensors only and is differentiable in ``sh_dc`` and ``sh_rest``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ import numpy as np
 import torch
 
 from ..cloud import DIM_FOR_DEGREE, SH_C0, SplatCloud
+
+# Degree-aware real SH basis constants (standard 3DGS evaluation set).
+SH_C1 = 0.4886025119029199
+SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+         -1.0925484305920792, 0.5462742152960396)
+SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+         0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+         -0.5900435899266435)
 
 # (degree, first coeff, end coeff) of each AC band, highest first
 _BANDS = ((3, 8, 15), (2, 3, 8), (1, 0, 3))
@@ -134,3 +143,50 @@ def add_rgb(cloud: SplatCloud) -> SplatCloud:
     if cloud.rgb is not None:
         return cloud
     return cloud.replace(rgb=rgb_u8_srgb_from_dc(cloud.sh_dc))
+
+
+def _band(rest: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """sum_j rest[n, c, j] * basis[n, j] -> [N, 3]."""
+    return (rest * basis[:, None, :]).sum(-1)
+
+
+def eval_sh(cloud: SplatCloud, dirs: torch.Tensor, degree: int | None = None) -> torch.Tensor:
+    """Evaluate view-dependent color for unit view dirs [N,3] -> linear RGB [N,3].
+
+    Used by the differentiable rasterizer; degree defaults to the cloud's
+    active degree. Standard real-SH basis (same convention as Inria 3DGS).
+    ``cloud``'s ``sh_dc`` / ``sh_rest`` are tensors on ``dirs``' device.
+    """
+    deg = cloud.active_sh_degree if degree is None else degree
+    c = 0.5 + SH_C0 * cloud.sh_dc  # [N,3]
+    if deg == 0:
+        return c
+    x, y, z = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    rest = cloud.sh_rest  # [N,3,15] channel-major
+    b1 = torch.cat([-y, z, -x], dim=1) * SH_C1  # coeffs 0..2
+    c = c + _band(rest[:, :, 0:3], b1)
+    if deg >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        b2 = torch.cat([
+            SH_C2[0] * xy,
+            SH_C2[1] * yz,
+            SH_C2[2] * (2.0 * zz - xx - yy),
+            SH_C2[3] * xz,
+            SH_C2[4] * (xx - yy),
+        ], dim=1)
+        c = c + _band(rest[:, :, 3:8], b2)
+    if deg >= 3:
+        xx, yy, zz = x * x, y * y, z * z
+        xy = x * y
+        b3 = torch.cat([
+            SH_C3[0] * y * (3.0 * xx - yy),
+            SH_C3[1] * xy * z,
+            SH_C3[2] * y * (4.0 * zz - xx - yy),
+            SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+            SH_C3[4] * x * (4.0 * zz - xx - yy),
+            SH_C3[5] * z * (xx - yy),
+            SH_C3[6] * x * (xx - 3.0 * yy),
+        ], dim=1)
+        c = c + _band(rest[:, :, 8:15], b3)
+    return c

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Every test here needs a CUDA card and skips without one.  The module
+Every test here needs a CUDA card and skips without one.  The compositing
+kernels K5/K6 (``csrc/composite.cu``) are held against their plain versions
+with per-tile exit (``render/rasterizer.py``).  The module
 imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing ``tests/conftest.py``:
 
@@ -17,6 +19,7 @@ from gsconverter_tpu_torch.formats import get_handler
 from gsconverter_tpu_torch.ops import kmeans as km
 from gsconverter_tpu_torch.ops import sor
 from gsconverter_tpu_torch.ops.padding import PAD_POS, pad_rows
+from gsconverter_tpu_torch.render import rasterizer as rz
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels K1-K4 (csrc/*.cu) have no CPU mode")
+        pytest.skip("needs a CUDA card: kernels K1-K6 (csrc/*.cu) have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -464,3 +467,194 @@ def test_sog_written_twice_on_card_is_byte_identical(card, tmp_path):
     assert outs[0] == outs[1]
     back = get_handler("sog").read(str(tmp_path / "0.sog"))
     assert back.n == n and back.active_sh_degree == 2
+
+
+# ------------------------------------------------- K5 / K6: tile compositing
+
+
+def _tile_windows(device, c_sz, budget, seed=0):
+    """Synthetic per-tile candidate windows [C, budget]: pixel-scale
+    splats around each tile, plus special tiles: 0 empty, 1 full, 2
+    saturating after three candidates (four wide splats at alpha 0.99 in front), 3
+    fully transparent (every alpha below 1/255), 4 a near-camera giant (sigma
+    of 500 px) in front.  Invalid slots (j >= count) carry alpha 0."""
+    r = np.random.default_rng(seed)
+    counts = r.integers(1, budget + 1, c_sz)
+    counts[0], counts[1] = 0, budget
+    tix = np.arange(c_sz)
+    origin = np.stack([(tix % 32) * 16.0, (tix // 32) * 16.0], 1)
+    mean = origin[:, None, :] + r.uniform(-8, 24, (c_sz, budget, 2))
+    sig = r.uniform(0.7, 6.0, (c_sz, budget, 2))
+    rho = r.uniform(-0.6, 0.6, (c_sz, budget))
+    det = (sig[..., 0] * sig[..., 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sig[..., 1] ** 2 / det, -rho * sig[..., 0] * sig[..., 1] / det,
+                      sig[..., 0] ** 2 / det], -1)
+    color = r.uniform(0, 1, (c_sz, budget, 3))
+    alpha = r.uniform(0.01, 0.9, (c_sz, budget))
+    mean[2, :4] = origin[2] + 8.0
+    conic[2, :4] = [1e-4, 0.0, 1e-4]
+    alpha[2, :4] = 0.99
+    alpha[3] = 0.003
+    mean[4, 0] = origin[4] + 3.0
+    conic[4, 0] = [4e-6, 0.0, 4e-6]
+    alpha[4, 0] = 0.6
+    alpha[np.arange(budget)[None, :] >= counts[:, None]] = 0.0
+    geo = np.concatenate([mean, conic, color], -1).astype(np.float32)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+    return (f(geo), f(alpha), f(origin),
+            torch.from_numpy(counts.astype(np.int32)).to(device))
+
+
+def _field_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("budget,bm", [(32, 32), (64, 32), (256, 64), (1024, 64),
+                                       (1024, 32), (96, 48), (40, 1)])
+def test_composite_kernels_match_plain_version(card, budget, bm):
+    c_sz = 96
+    geo, alpha, origin, counts = _tile_windows(card, c_sz, budget, seed=budget + bm)
+    bg = torch.tensor([0.25, 0.5, 1.0], device=card)
+    before = dict(rz.LAUNCHES)
+    fk = rz._composite_fwd_kernel(bm, geo, alpha, origin, counts, bg)
+    torch.cuda.synchronize()
+    fp = rz._composite_fwd_ref(bm, geo, alpha, origin, counts, bg, per_tile=True)
+    assert rz.LAUNCHES["composite_fwd"] == before["composite_fwd"] + 1
+    rgb_k, ts_k, tf_k, nd_k = fk
+    rgb_p, ts_p, tf_p, nd_p = fp
+    # a tile whose exit decision differs (its largest T within rounding of
+    # T_EPS) is allowed T_EPS * (max color + max |bg|)
+    flip = nd_k != nd_p
+    assert int(flip.sum()) <= 1, int(flip.sum())
+    same = ~flip
+    err = (rgb_k - rgb_p).abs().amax((1, 2))
+    assert float(err[same].max()) <= 2e-5
+    if flip.any():
+        assert float(err[flip].max()) <= rz.T_EPS * (1.0 + 1.0) + 2e-5
+    assert int(nd_k[0]) == 0 and int(nd_k[2]) == -(-3 // bm)
+    assert int(nd_k[3]) == -(-int(counts[3]) // bm)  # transparent: every block
+    assert torch.allclose(rgb_k[0], bg.expand(256, 3))
+    torch.testing.assert_close(tf_k[same], tf_p[same], rtol=1e-4, atol=1e-6)
+    live = torch.arange(ts_k.shape[0], device=card)[:, None] < nd_k[None, :]
+    live &= same[None, :]
+    torch.testing.assert_close(ts_k[live], ts_p[live], rtol=1e-4, atol=1e-6)
+    grgb = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (c_sz, 256, 3)).astype(np.float32)).to(card)
+    dk = rz._composite_bwd_kernel(bm, geo, alpha, origin, bg, ts_k, tf_k, nd_k, grgb)
+    torch.cuda.synchronize()
+    dp = rz._composite_bwd_ref(bm, geo, alpha, origin, bg, ts_k, tf_k, nd_k, grgb)
+    assert rz.LAUNCHES["composite_bwd"] == before["composite_bwd"] + 1
+    rows = same[:, None].expand(-1, geo.shape[1])
+    for name, sl in (("mean", slice(0, 2)), ("conic", slice(2, 5)), ("color", slice(5, 8))):
+        assert _field_err(dk[0][..., sl][rows], dp[0][..., sl][rows]) <= 1e-4, name
+    assert _field_err(dk[1][rows], dp[1][rows]) <= 1e-4, "alpha"
+    assert _field_err(dk[2].sum(0), dp[2]) <= 1e-4, "bg"
+    # blocks a tile never composited have zero gradients
+    past = torch.arange(geo.shape[1], device=card)[None, :] >= (nd_k[:, None] * bm)
+    assert not bool(dk[1][past].any()) and not bool(dk[0][past].any())
+
+
+def test_composite_kernels_repeat_bit_identical(card):
+    geo, alpha, origin, counts = _tile_windows(card, 64, 512, seed=5)
+    bg = torch.tensor([0.1, 0.0, 0.3], device=card)
+    f1 = rz._composite_fwd_kernel(64, geo, alpha, origin, counts, bg)
+    f2 = rz._composite_fwd_kernel(64, geo, alpha, origin, counts, bg)
+    assert torch.equal(f1[0], f2[0]) and torch.equal(f1[2], f2[2]) and torch.equal(f1[3], f2[3])
+    live = torch.arange(f1[1].shape[0], device=card)[:, None] < f1[3][None, :]
+    assert torch.equal(f1[1][live], f2[1][live])
+    grgb = 2.0 * f1[0]
+    b1 = rz._composite_bwd_kernel(64, geo, alpha, origin, bg, f1[1], f1[2], f1[3], grgb)
+    b2 = rz._composite_bwd_kernel(64, geo, alpha, origin, bg, f1[1], f1[2], f1[3], grgb)
+    for a, b in zip(b1, b2):
+        assert torch.equal(a, b)
+
+
+def test_composite_kernels_reject_what_they_do_not_take(card):
+    geo, alpha, origin, counts = _tile_windows(card, 8, 128)
+    bg = torch.zeros(3, device=card)
+    for bm in (0, 65, 128, 96):
+        with pytest.raises(ValueError):
+            rz._composite_fwd_kernel(bm, geo, alpha, origin, counts, bg)
+    with pytest.raises(ValueError):
+        rz._composite_fwd_kernel(32, geo, alpha, origin, counts, bg.cpu())
+    with pytest.raises(ValueError):
+        rz._composite_fwd_kernel(32, geo[:, :, :7].contiguous(), alpha, origin, counts, bg)
+    with pytest.raises(ValueError):
+        rz.render(SplatCloud.zeros(8), rz.Camera.look_at((0, 0, -5), (0, 0, 0), width=32,
+                                                         height=32), block_m=128)
+
+
+def _render_scene(n=20_000, seed=7):
+    """tests/test_render.py's structured scene (depth-stratified clusters,
+    mid splats, near-camera giants) at 64 x 64, as a host cloud."""
+    rr = np.random.default_rng(seed)
+    n_giant, n_mid = 40, 1_500
+    n_bg = n - n_giant - n_mid
+    centers = np.array([[0, 0, 0], [0.8, 0.4, 1.5], [-0.6, -0.3, 3.0],
+                        [0.2, -0.6, 4.5]], np.float32)
+    pos = np.concatenate([
+        centers[rr.integers(0, 4, n_bg)] + rr.normal(0, 0.5, (n_bg, 3)),
+        rr.normal(0, 1.2, (n_mid, 3)),
+        np.stack([rr.uniform(-1, 1, n_giant), rr.uniform(-1, 1, n_giant),
+                  rr.uniform(3.2, 4.0, n_giant)], 1)]).astype(np.float32)
+    ls = np.concatenate([rr.normal(-5.0, 0.3, (n_bg, 3)), rr.normal(-2.6, 0.2, (n_mid, 3)),
+                         rr.normal(-0.8, 0.2, (n_giant, 3))]).astype(np.float32)
+    op = np.concatenate([rr.normal(-1, 1, n_bg), rr.normal(0, 1, n_mid),
+                         rr.normal(1.5, 0.5, n_giant)]).astype(np.float32)
+    quat = rr.normal(0, 1, (n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    cloud = SplatCloud(pos=pos, sh_dc=rr.normal(0, 0.5, (n, 3)).astype(np.float32),
+                       sh_rest=np.zeros((n, 3, 15), np.float32), opacity=op, log_scale=ls,
+                       quat=quat, normal=np.zeros((n, 3), np.float32), active_sh_degree=0)
+    cam = rz.Camera.look_at(eye=(0, 0, 5.0), target=(0, 0, 0), fov_deg=40.0,
+                            width=64, height=64)
+    return cloud, cam
+
+
+def test_render_on_card_launches_once_per_band_and_matches_cpu(card, monkeypatch):
+    cloud, cam = _render_scene()
+    b = rz.auto_budget(cloud, cam, cap=16384, band_chunk=2)
+    b_cpu = rz.auto_budget(cloud, cam, cap=16384, band_chunk=2, device="cpu")
+    assert b["band_plan"] == b_cpu["band_plan"]
+    kw = dict(binning="windowed", max_global=b["max_global"], tile_chunk=2, block_m=64,
+              tile_order=b["tile_order"], band_plan=b["band_plan"])
+    op = torch.from_numpy(cloud.opacity).to(card).requires_grad_(True)
+    gcloud = cloud.to_device(card).replace(opacity=op)
+    before = dict(rz.LAUNCHES)
+    img = rz.render(gcloud, cam, **kw)
+    assert rz.LAUNCHES["composite_fwd"] == before["composite_fwd"] + len(b["band_plan"])
+    torch.sum(img * img).backward()
+    torch.cuda.synchronize()
+    assert rz.LAUNCHES["composite_bwd"] == before["composite_bwd"] + len(b["band_plan"])
+    img = img.detach()
+    # the CPU plain path: another exp and other projection roundings, so
+    # a raw alpha at the 1/255 step may flip; held by PSNR and gradients
+    op_c = torch.from_numpy(cloud.opacity).requires_grad_(True)
+    img_c = rz.render(cloud.to_device("cpu").replace(opacity=op_c), cam, **kw)
+    torch.sum(img_c * img_c).backward()
+    assert _field_err(op.grad.cpu(), op_c.grad) <= 2e-3
+    assert float(rz.psnr(img.cpu(), img_c.detach())) > 60.0
+    # the plain path's chunk-wide exit on the card's own tensors (the same
+    # alpha bits): within T_EPS * max color of the per-tile exit
+    groups = rz._launch_groups
+    monkeypatch.setattr(rz, "_launch_groups",
+                        lambda n_tiles, chunk, on_card, *a: groups(n_tiles, chunk, False, *a))
+    monkeypatch.setattr(rz, "_composite", lambda bm, g, a, o, c, bg, per_tile=True:
+                        rz._composite_fwd_ref(bm, g, a, o, c, bg, per_tile=False)[0])
+    with torch.no_grad():
+        img_p = rz.render(cloud.to_device(card), cam, **kw)
+    bound = rz.T_EPS * (float(np.clip(0.5 + 0.28209479 * cloud.sh_dc, 0, None).max())) + 1e-5
+    assert float((img - img_p).abs().max()) <= bound
+
+
+def test_fit_on_card_reduces_loss(card):
+    from gsconverter_tpu_torch.render.train import fit
+
+    cloud, cam = _render_scene(n=2_000, seed=3)
+    target = rz.render(cloud, cam, max_per_tile=256, device="cuda")
+    perturbed = cloud.replace(sh_dc=cloud.sh_dc + 0.3, opacity=cloud.opacity - 0.5)
+    before = rz.LAUNCHES["composite_bwd"]
+    fitted, losses = fit(perturbed, cam, target, steps=30, lr=2e-2, max_per_tile=256)
+    assert fitted.pos.device.type == "cuda"
+    assert rz.LAUNCHES["composite_bwd"] == before + 30
+    assert losses[-1] < losses[0] * 0.5

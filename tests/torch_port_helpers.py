@@ -115,3 +115,12 @@ def flyer_scene_ply(path, n=5000, seed=7):
     )
     get_handler("3dgs").write(cloud, str(path))
     return str(path)
+
+
+def to_port_camera(jax_cam):
+    """The JAX package's camera carried across as the port's (CPU)."""
+    from gsconverter_tpu_torch.render.camera import Camera
+
+    return Camera.from_numpy(np.asarray(jax_cam.world_to_cam), np.asarray(jax_cam.fx),
+                             np.asarray(jax_cam.fy), np.asarray(jax_cam.cx),
+                             np.asarray(jax_cam.cy), jax_cam.width, jax_cam.height)
