@@ -68,6 +68,24 @@ Phases (any failure ends the run with a non-zero exit):
      crop at full N (>= 35 dB); the scene's .spz round trip (> 30 dB);
      examples/fit_scene.py's scene and 200 steps (fitted PSNR > perturbed
      + 5 dB); 3 timed fit steps at full size with the loss falling.
+  9. the device-resident path: config 2's 1M-splat scene read, taken to
+     the card with SplatCloud.device() and run through the public filters
+     there (bbox, min_opacity=5, density_sensitivity=0.5, sor_intensity=4;
+     compaction on the card), each stage's result equal to the host
+     chain's, one K1 launch, then Converter.write_processed to .splat, 3DGS
+     PLY, .ksplat levels 0-2, .spz and compressed PLY, each file's digest
+     against phase 4's (or, where exp or sigmoid on the card rounds an ulp
+     away from numpy's, decoded within a step of the host chain's file),
+     with the stage times and .splat's tied sort metrics; Converter.run with
+     checkpoint_dir and then resumed from it, both .splat files equal to
+     phase 4's, with each snapshot's save and load time; the density filter
+     on the wide grid (extent / voxel > 1023, 1M points) on the card equal
+     to the host path; the SOR grid at the main path's n against the window
+     method (>= 99% agreement) and sor_mean_knn_dists on the card against
+     the CPU (rel 1e-5); config 3's 3M-splat scene as a device cloud to .sog
+     at levels 1 and 10, 11 K2 and K4 launches each, against phase 7's
+     host-cloud file (the palette byte-identical, other texels within one
+     step).
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -128,6 +146,9 @@ K34_N, K34_D, K34_K = 1_048_576, 24, 4096
 # (rows, centroids) of K3's u8-grid case with exact ties, at D = K34_D
 K3_GRID = (262_144, 600)
 SMALL_SOG_N = 20_000
+# phase 9's wide-grid density scene: points, and the second blob's x offset
+# (extent / voxel about 2000 at sensitivity 0.5's voxel of 1.1)
+WIDE_N, WIDE_OFFSET = 1_000_000, 2200.0
 # config 4 (bench.py:570-572): splats, height, width; the bench's render
 # settings; the crop camera's size and field of view
 RENDER_N, RENDER_H, RENDER_W = 1_000_000, 1088, 1920
@@ -927,9 +948,9 @@ def phase_sog(km, smi):
         if launches["lloyd"] != 11 or launches["update"] != 11:
             fail(f"ply -> sog level {level} launched K2 {launches['lloyd']} and K4 "
                  f"{launches['update']} times, not 11 each")
-        os.unlink(out)
+        # the file and the scene stay for phase 9's device cloud
+        r.update(sha256=file_digest(out), path=out)
         runs[level] = r
-    os.unlink(src)
     return runs
 
 
@@ -966,6 +987,300 @@ def phase_small_sog():
         fail("the 20k .sog palette on cuda reconstructs worse than 1.25x the cpu's")
     os.unlink(src)
     return r
+
+
+# ------------------------------------------------- phase 9: device clouds
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, the card synchronised on both sides."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def device_chain_stages():
+    """Config 2's filter chain as (name, stage) over the public filters."""
+    from gsconverter_tpu_torch.ops import filters
+
+    return (("bbox", lambda c: filters.crop_by_bbox(c, BBOX)),
+            ("alpha", lambda c: filters.alpha_filter(c, 5)),
+            ("density", lambda c: filters.density_filter(c, sensitivity=0.5)),
+            ("sor", lambda c: filters.remove_flyers(c, intensity=4, device=DEVICE)))
+
+
+# log-scale bound of each main-path file, as tests/test_torch_device_path.py
+# STEPS: f32 scales of ``exp`` (.splat, .ksplat level 0) move by an ulp
+# (about 1e-7 in log-scale), f16 scales (.ksplat levels 1-2) by an f16 step,
+# and 3DGS, .spz and compressed PLY keep or quantize the log-scale itself
+LOG_SCALE_STEP = {"splat": 1e-6, "3dgs": 0.0, "ksplat_l0": 1e-6, "ksplat_l1": 1e-3,
+                  "ksplat_l2": 1e-3, "spz": 0.0, "compressed_ply": 0.0}
+
+
+def decoded_within_step(label, fmt, path_a, path_b):
+    """Decode two files of ``fmt`` and hold b against a: positions, colours
+    and rotations equal, log-scales within ``LOG_SCALE_STEP[label]``, alphas
+    within one u8 step (``exp`` and ``sigmoid`` on the card round an ulp
+    away from numpy's).  .splat rows whose metrics tie may take another
+    order, so its rows are compared in position order."""
+    from gsconverter_tpu_torch.formats import get_handler
+
+    h = get_handler(fmt)
+    a, b = h.read(path_a), h.read(path_b)
+    if a.n != b.n:
+        return dict(within=False, n=(a.n, b.n))
+    if fmt == "splat":
+        a, b = (x.select(np.lexsort(np.asarray(x.pos).T)) for x in (a, b))
+    sig = lambda x: 1 / (1 + np.exp(-np.asarray(x, np.float64)))  # noqa: E731
+    out = dict(
+        pos_equal=bool(np.array_equal(a.pos, b.pos)),
+        sh_equal=bool(np.array_equal(a.sh_dc, b.sh_dc) and np.array_equal(a.sh_rest, b.sh_rest)),
+        quat_equal=bool(np.array_equal(a.quat, b.quat)),
+        log_scale_max_err=float(np.abs(a.log_scale - b.log_scale).max()) if a.n else 0.0,
+        alpha_max_err=float(np.abs(sig(a.opacity) - sig(b.opacity)).max()) if a.n else 0.0)
+    out["within"] = (out["pos_equal"] and out["sh_equal"] and out["quat_equal"]
+                     and out["log_scale_max_err"] <= LOG_SCALE_STEP[label]
+                     and out["alpha_max_err"] <= 1 / 255 + 1e-6)
+    return out
+
+
+def splat_tie_groups(cloud):
+    """Groups of rows whose .splat sort metric ties exactly, on the card:
+    the host's unstable ``np.argsort`` may order such rows otherwise."""
+    from gsconverter_tpu_torch.ops import quant
+
+    m = torch.exp(cloud.log_scale.sum(dim=1)) * quant.sigmoid(cloud.opacity)
+    sm = torch.sort(m).values
+    eq = sm[1:] == sm[:-1]
+    starts = eq & torch.cat([torch.ones(1, dtype=torch.bool, device=eq.device), ~eq[:-1]])
+    return dict(groups=int(starts.sum()), rows=int(eq.sum() + starts.sum()))
+
+
+def phase_device_chain(sor, smi, src, runs):
+    """Config 2 at 1M splats as a device cloud: read, ``.device()``, the
+    public filter chain on the card (compaction on the card), then
+    ``Converter.write_processed`` to every main-path format.  Each stage's
+    result against the host chain's, each file against phase 4's."""
+    from gsconverter_tpu_torch.converter import Converter
+    from gsconverter_tpu_torch.formats import get_handler
+
+    source, read_s = timed(lambda: get_handler("3dgs").read(src))
+    # the host chain first, each stage's kept positions held for the check
+    host, host_pos, host_s = source, {}, {}
+    for name, stage in device_chain_stages():
+        host, host_s[name] = timed(lambda: stage(host))
+        host_pos[name] = host.pos
+    # the chain twice: the first call of each torch op on the card loads
+    # its kernels (cold), the second is the steady state (warm)
+    stages, cold_s, masks_equal = {}, {}, {}
+    for run in ("cold", "warm"):
+        dev, upload_s = timed(lambda: source.device(DEVICE))
+        sor.KERNEL_LAUNCHES = 0
+        for name, stage in device_chain_stages():
+            dev, stages[name] = timed(lambda: stage(dev))
+            masks_equal[name] = bool(np.array_equal(dev.pos.cpu().numpy(), host_pos[name]))
+        launches = sor.KERNEL_LAUNCHES
+        if launches != 1:
+            fail(f"the {run} device chain launched K1 {launches} times, not once")
+        if run == "cold":
+            cold_s, stages = dict(stages, upload=upload_s), {}
+    del source
+    chain_s = sum(stages.values())
+    files, writes_s = {}, {}
+    for label, fmt, opts in (("splat", "splat", {}), ("3dgs", "3dgs", {})) + MAIN_CODECS:
+        ref = os.path.join(OUT_DIR, f"dev_host_{label}{EXT[fmt]}")
+        out = os.path.join(OUT_DIR, f"dev_{label}{EXT[fmt]}")
+        Converter(src, ref, fmt, device=DEVICE).write_processed(host, **opts)
+        _, writes_s[label] = timed(
+            lambda: Converter(src, out, fmt, device=DEVICE).write_processed(dev, **opts))
+        digest = file_digest(out)
+        r = dict(identical_to_phase4=digest == runs[label]["sha256"],
+                 host_ref_identical_to_phase4=file_digest(ref) == runs[label]["sha256"])
+        if not r["identical_to_phase4"]:
+            r["check"] = decoded_within_step(label, fmt, ref, out)
+        files[label] = r
+        os.unlink(out)
+        os.unlink(ref)
+    r = dict(n=host.n, kept_equal_phase4=dev.n == runs["splat"]["kept"], launches=launches,
+             read_s=read_s, upload_s=upload_s, stages_s=stages, cold_stages_s=cold_s,
+             host_stages_s=host_s,
+             chain_s=chain_s, writes_s=writes_s,
+             wall_s=read_s + upload_s + chain_s + sum(writes_s.values()),
+             masks_equal_host=masks_equal, splat_tie_groups=splat_tie_groups(dev),
+             files=files)
+    log(f"[device] config 2 device cloud on {smi}: {json.dumps(r)}")
+    if not all(masks_equal.values()) or not r["kept_equal_phase4"]:
+        fail(f"the device chain's stages differ from the host chain's: {json.dumps(masks_equal)}")
+    for label, f in files.items():
+        if not f["host_ref_identical_to_phase4"]:
+            fail(f"the host chain's {label} differs from phase 4's file")
+        if not f["identical_to_phase4"] and not f["check"]["within"]:
+            fail(f"the device cloud's {label} lies beyond its bound: {json.dumps(f)}")
+    return r
+
+
+def phase_checkpoint(sor, smi, src, runs):
+    """Config 2 at 1M splats through Converter.run with checkpoint_dir, then
+    a resumed run: both .splat files equal phase 4's."""
+    from gsconverter_tpu_torch.converter import Converter
+
+    ck = os.path.join(OUT_DIR, "ckpt")
+    out = {}
+    for run in ("first", "resumed"):
+        path = os.path.join(OUT_DIR, f"ckpt_{run}.splat")
+        conv = Converter(src, path, "splat", device=DEVICE)
+        sor.KERNEL_LAUNCHES = 0
+        _, wall = timed(lambda: conv.run(checkpoint_dir=ck, **MAIN_FLAGS))
+        rep = conv.timer.report()
+        out[run] = dict(wall_s=wall, launches=sor.KERNEL_LAUNCHES,
+                        identical_to_phase4=file_digest(path) == runs["splat"]["sha256"],
+                        snapshot_s={k: v for k, v in rep.items() if k.startswith("checkpoint")})
+        os.unlink(path)
+    out["snapshot_mb"] = {s: sum(os.path.getsize(os.path.join(ck, s, f))
+                                 for f in os.listdir(os.path.join(ck, s))) / 1e6
+                          for s in sorted(os.listdir(ck))}
+    shutil.rmtree(ck)
+    log(f"[ckpt] config 2 with checkpoint_dir on {smi}: {json.dumps(out)}")
+    if out["first"]["launches"] != 1 or out["resumed"]["launches"] != 0:
+        fail("the checkpointed runs launched K1 other than once, then not at all")
+    if not (out["first"]["identical_to_phase4"] and out["resumed"]["identical_to_phase4"]):
+        fail("a checkpointed .splat differs from phase 4's")
+    return out
+
+
+def phase_density_sor(sor, smi, sor_pos):
+    """The density filter on the wide grid (extent / voxel > 1023), on the
+    card against the host path; the SOR grid at the main path's n against
+    the window method on the card and against the CPU."""
+    from gsconverter_tpu_torch.ops import density
+
+    rr = np.random.default_rng(5)
+    # two N(0, 1.5) blobs, both with voxels above the threshold
+    pos = np.concatenate([rr.normal(0, 1.5, (WIDE_N - WIDE_N // 2, 3)),
+                          rr.normal(0, 1.5, (WIDE_N // 2, 3)) + [WIDE_OFFSET, 0, 0]]
+                         ).astype(np.float32)
+    voxel, thresh = density.sensitivity_to_params(0.5)
+    host, host_s = timed(lambda: density.density_mask(pos, voxel, thresh, True))
+    pos_d = torch.from_numpy(pos).to(DEVICE)
+    card, card_s = timed(lambda: density.density_mask(pos_d, voxel, thresh, True))
+    wide = dict(n=WIDE_N, extent_over_voxel=float((pos.max(0) - pos.min(0)).max() / voxel),
+                equal=bool(np.array_equal(card.cpu().numpy(), host)),
+                kept=int(host.sum()), card_ms=card_s * 1e3, host_ms=host_s * 1e3)
+    _, wide["card_repeat_ms"] = timed(lambda: density.density_mask(pos_d, voxel, thresh, True))
+    wide["card_repeat_ms"] *= 1e3
+    log(f"[density] wide grid on {smi}: {json.dumps(wide)}")
+    if not wide["equal"] or wide["extent_over_voxel"] <= 1023:
+        fail(f"the wide-grid density mask on the card differs from the host path's: "
+             f"{json.dumps(wide)}")
+
+    n = sor_pos.shape[0]
+    grid, grid_s = timed(lambda: sor.sor_mask(sor_pos, 25, 10.5, method="grid"))
+    window, window_s = timed(lambda: sor.sor_mask(sor_pos, 25, 10.5))
+    md_card, md_card_s = timed(lambda: sor.sor_mean_knn_dists(sor_pos, 25))
+    md_cpu, md_cpu_s = timed(lambda: sor.sor_mean_knn_dists(sor_pos.cpu(), 25))
+    rel = ((md_card.cpu() - md_cpu).abs() / md_cpu.clamp_min(1e-12)).max()
+    g = dict(n=n, grid_vs_window_agree=float((grid == window).float().mean()),
+             grid_kept=int(grid.sum()), window_kept=int(window.sum()),
+             grid_ms=grid_s * 1e3, window_ms=window_s * 1e3,
+             md_card_ms=md_card_s * 1e3, md_cpu_ms=md_cpu_s * 1e3,
+             md_max_rel_card_vs_cpu=float(rel))
+    log(f"[sor] grid method at the main path's n on {smi}: {json.dumps(g)}")
+    if g["grid_vs_window_agree"] < 0.99 or g["md_max_rel_card_vs_cpu"] > 1e-5:
+        fail(f"the SOR grid disagrees: {json.dumps(g)}")
+    return wide, g
+
+
+def compare_sog(path_a, path_b):
+    """Two .sog files: the entries that are byte-identical, and for the
+    others the largest texel difference (positions as u16) and meta.json's
+    other keys."""
+    from gsconverter_tpu_torch.formats import sog
+
+    za, zb = zipfile.ZipFile(path_a), zipfile.ZipFile(path_b)
+    names = [i.filename for i in za.infolist()]
+    ma, mb = json.loads(za.read("meta.json")), json.loads(zb.read("meta.json"))
+    n = ma["count"]
+    differ = [x for x in names if za.read(x) != zb.read(x)]
+
+    def plane(z, name):
+        return sog._read_webp_flat(z, name, n).astype(np.int64)
+
+    out = dict(identical=[x for x in names if x not in differ],
+               names_equal=names == [i.filename for i in zb.infolist()],
+               meta_other_equal=all(ma[k] == mb[k] for k in ma if k != "means"))
+    texel = {}
+    for name in differ:
+        if name == "meta.json":
+            continue
+        if name == "shN_centroids.webp":
+            texel[name] = -1  # another palette: never within the bound
+            continue
+        if name.startswith("means_"):
+            a = plane(za, "means_l.webp")[:, :3] | (plane(za, "means_u.webp")[:, :3] << 8)
+            b = plane(zb, "means_l.webp")[:, :3] | (plane(zb, "means_u.webp")[:, :3] << 8)
+        else:
+            a, b = plane(za, name), plane(zb, name)
+        texel[name] = int(np.abs(a - b).max())
+    out["max_texel_diff"] = texel
+    out["means_bounds_rel"] = max(
+        float(np.max(np.abs(np.array(ma["means"][k]) - np.array(mb["means"][k]))
+                     / np.maximum(np.abs(np.array(ma["means"][k])), 1e-30)))
+        for k in ("mins", "maxs"))
+    out["within"] = (out["names_equal"] and out["meta_other_equal"]
+                     and all(v <= 1 for v in texel.values())
+                     and out["means_bounds_rel"] <= 2.4e-7
+                     and {"shN_centroids.webp", "shN_labels.webp"} <= set(out["identical"]))
+    return out
+
+
+def phase_device_sog(km, smi, sog_runs):
+    """Config 3: the 3M-splat scene as a device cloud to .sog at levels 1
+    and 10, each file against phase 7's host-cloud file."""
+    from gsconverter_tpu_torch import config
+    from gsconverter_tpu_torch.converter import Converter
+    from gsconverter_tpu_torch.formats import get_handler
+
+    src = os.path.join(OUT_DIR, "scene_sog.ply")
+    host, read_s = timed(lambda: get_handler("3dgs").read(src))
+    dev, upload_s = timed(lambda: host.device(DEVICE))
+    del host
+    runs = {}
+    for level in SOG_LEVELS:
+        out = os.path.join(OUT_DIR, f"dev_{level}.sog")
+        buf = io.StringIO()
+        km.LAUNCHES.update(dict.fromkeys(km.LAUNCHES, 0))
+        prev, config.TIMING = config.TIMING, True
+        try:
+            with contextlib.redirect_stdout(buf):
+                _, wall = timed(lambda: Converter(src, out, "sog", device=DEVICE)
+                                .write_processed(dev, compression_level=level))
+        finally:
+            config.TIMING = prev
+        launches = dict(km.LAUNCHES)
+        r = dict(level=level, read_s=read_s, upload_s=upload_s, write_s=wall,
+                 launches=launches,
+                 stages_ms={k: v for k, v in sog_stage_times(buf.getvalue()).items()
+                            if k.startswith("sog.")},
+                 identical_to_phase7=file_digest(out) == sog_runs[level]["sha256"],
+                 check=compare_sog(sog_runs[level]["path"], out))
+        log(f"[device] config 3 device cloud -> sog level {level} on {smi}: {json.dumps(r)}")
+        if launches["lloyd"] != 11 or launches["update"] != 11:
+            fail(f"device sog level {level} launched K2 {launches['lloyd']} and K4 "
+                 f"{launches['update']} times, not 11 each")
+        if not r["identical_to_phase7"] and not r["check"]["within"]:
+            fail(f"device sog level {level} lies beyond its bound: {json.dumps(r['check'])}")
+        os.unlink(out)
+        os.unlink(sog_runs[level]["path"])
+        runs[level] = r
+    os.unlink(src)
+    return runs
 
 
 # ------------------------------------------------------------ config 4
@@ -1470,6 +1785,9 @@ def main():
     # 4. the main path
     runs, (spos, k, window, iters), main_src = phase_main_path(sor, smi)
     batch = phase_batch(sor, smi, main_src, runs)
+    # 9. the device-resident path (config 2 as a device cloud, checkpoints)
+    dev_chain = phase_device_chain(sor, smi, main_src, runs)
+    ckpt = phase_checkpoint(sor, smi, main_src, runs)
     os.unlink(main_src)
     small_same = phase_small_agreement(sor)
     # 5. K1 on the main path's own input
@@ -1477,16 +1795,20 @@ def main():
     r = compare_k1(sor, spos, k, window, iters, real=real)
     r.update(n=spos.shape[0], k=k, window=window, iters=iters)
     log(f"[k1] main-path input: {json.dumps(r)}")
+    # 9. density on the wide grid; the SOR grid at the main path's n
+    wide, sor_grid = phase_density_sor(sor, smi, spos[real].contiguous())
     # 6. K2, K3, K4 against their plain versions
     k2 = phase_k2(km)
     k3, k4 = phase_k3_k4(km)
     # 7. the SOG path
     sog_runs = phase_sog(km, smi)
     small_sog = phase_small_sog()
+    # 9. config 3 as a device cloud
+    dev_sog = phase_device_sog(km, smi, sog_runs)
     # 8. config 4: the renderer
     rend = phase_render(smi)
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    log(f"[done] phases 3-8 in {time.perf_counter() - t_all:.1f} s; "
+    log(f"[done] phases 3-9 in {time.perf_counter() - t_all:.1f} s; "
         f"small scene byte-identical={small_same}; "
         f"small .sog cuda/cpu mse {small_sog['mse_cuda']:.6g}/{small_sog['mse_cpu']:.6g}")
 
@@ -1498,7 +1820,9 @@ def main():
         "launches": runs["splat"]["launches"],
         # one a conversion on every path of config 2, and one a batch scene
         "launches_by_path": dict({label: run["launches"] for label, run in runs.items()},
-                                 batch=batch["launches"]),
+                                 batch=batch["launches"], device_cloud=dev_chain["launches"],
+                                 checkpointed=ckpt["first"]["launches"],
+                                 resumed=ckpt["resumed"]["launches"]),
         "max_abs_err": r["max_abs_err"],
         "max_rel": r["max_rel"],
         "ms": r["kernel_ms"],  # the key the harness reads
@@ -1524,6 +1848,8 @@ def main():
         "replaces": "gsconverter_tpu/ops/kmeans.py:264",
         "launches": sog_runs[SOG_LEVELS[0]]["launches"]["lloyd"],
         "launches_by_level": {lv: run["launches"]["lloyd"] for lv, run in sog_runs.items()},
+        "device_cloud_launches_by_level": {lv: run["launches"]["lloyd"]
+                                           for lv, run in dev_sog.items()},
         "max_abs_err": main_k2["max_abs_err"],
         "ms": main_k2["kernel_ms"],
         "kernel_ms": main_k2["kernel_ms"],  # as _fit calls it, x rounded once a fit
@@ -1571,6 +1897,8 @@ def main():
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],  # index_add_
         "skew_ms": k4["skew_ms"],  # every label 0
+        "device_cloud_launches_by_level": {lv: run["launches"]["update"]
+                                           for lv, run in dev_sog.items()},
         "ordered_equal": k4["ordered_equal"],
         "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
         # on the main path K4 sums K2's segments: n = chunks * rows, k =

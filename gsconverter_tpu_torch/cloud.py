@@ -33,6 +33,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from .config import resolve_device
+from .ops.compaction import compact as _compact_on_device
+from .utils.transfer import cloud_is_host, to_host
+
 # Zeroth spherical-harmonic basis constant (reference data_processor.py:307).
 SH_C0 = 0.28209479177387814
 
@@ -142,14 +146,6 @@ def _shared_record_gather(named: dict, idx: np.ndarray) -> dict:
     return out
 
 
-def _to_numpy(a):
-    if a is None:
-        return None
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
-
-
 @dataclasses.dataclass
 class SplatCloud:
     """Canonical SoA splat cloud: numpy or torch leaves, plus metadata."""
@@ -181,7 +177,7 @@ class SplatCloud:
     @property
     def is_host(self) -> bool:
         """True when leaves are host numpy (the IO pipeline's residency)."""
-        return isinstance(self.pos, np.ndarray)
+        return cloud_is_host(self)
 
     def replace(self, **kw: Any) -> "SplatCloud":
         return dataclasses.replace(self, **kw)
@@ -249,7 +245,7 @@ class SplatCloud:
         if not self.is_host:
             idx = torch.as_tensor(idx, device=self.pos.device)
             if idx.dtype == torch.bool:
-                idx = torch.nonzero(idx).reshape(-1)
+                return self.compact(idx)
             return self._rebuild(
                 {name: a.index_select(0, idx) for name, a in named.items()})
         idx = np.asarray(idx)
@@ -263,7 +259,7 @@ class SplatCloud:
             if name in shared:
                 return shared[name]
             a = np.asarray(a)
-            if a.ndim and a.strides[0] == 0:
+            if a.ndim and a.strides[0] == 0 and a.shape[0]:
                 # broadcast leaf (e.g. cap_degree's all-zero sh_rest): every
                 # row is identical, so the gather is a broadcast
                 return np.broadcast_to(a[0], (len(idx),) + a.shape[1:])
@@ -272,22 +268,37 @@ class SplatCloud:
         return self._rebuild({name: take(name, a) for name, a in named.items()})
 
     def compact(self, mask) -> "SplatCloud":
-        """Boolean-mask compaction (changes N)."""
-        if isinstance(mask, torch.Tensor) and not self.is_host:
-            return self.select(mask)
-        return self.select(np.flatnonzero(_to_numpy(mask)))
+        """Boolean-mask compaction (changes N): a tensor cloud compacts on
+        its device (``ops/compaction.py``), a host cloud in numpy."""
+        if not self.is_host:
+            return _compact_on_device(self, mask)
+        return self.select(np.flatnonzero(to_host(mask)))
 
     # ------------------------------------------------------------- residency
     def to_numpy(self) -> "SplatCloud":
         """All leaves as host numpy arrays (host leaves pass through)."""
         return self._rebuild(
-            {name: _to_numpy(a) for name, a in self._named_leaves().items()})
+            {name: None if a is None else to_host(a)
+             for name, a in self._named_leaves().items()})
+
+    def device(self, device: str | torch.device | None = None) -> "SplatCloud":
+        """All leaves as tensors on ``device``: the card unless the caller
+        passes ``device="cpu"`` (``config.resolve_device``)."""
+        return self.to_device(resolve_device(device))
+
+    def block_until_ready(self) -> "SplatCloud":
+        """Wait for the work queued on the cloud's device (host: no-op)."""
+        if isinstance(self.pos, torch.Tensor) and self.pos.device.type == "cuda":
+            torch.cuda.synchronize(self.pos.device)
+        return self
 
     def to_device(self, device: str | torch.device) -> "SplatCloud":
         """All leaves as torch tensors on ``device``."""
         dev = torch.device(device)
 
         def conv(a):
+            if a is None:
+                return None
             if isinstance(a, torch.Tensor):
                 return a.to(dev)
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)

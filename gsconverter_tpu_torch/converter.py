@@ -7,10 +7,17 @@ bbox -> alpha -> density -> SOR -> auto-bbox, auto-RGB for {cc, splat,
 ksplat, sog}, extras preserve/strip policy, and the progress milestones
 (5/25/30/40).
 
-``device`` (default: the card, "cuda") is where the device stages run: SOR
-and the SOG writer's palette fit; the cloud itself stays host-resident from
-read to write.  Without a GPU, pass
-``device="cpu"``: the default never falls back to the CPU on its own.
+``device`` (default: the card, "cuda") is where a host cloud's device
+stages run: SOR and the SOG writer's palette fit; the cloud itself stays
+host-resident from read to write.  A cloud of tensors (``SplatCloud.device``)
+runs every stage where its tensors live, through ``write_processed`` or the
+filters.  Without a GPU, pass ``device="cpu"``: the default never falls back
+to the CPU on its own.
+
+``run(checkpoint_dir=...)`` snapshots the cloud after each filter stage
+(``utils/checkpoint.py``) and resumes a rerun after the last complete one;
+with ``config.DEBUG`` set, each stage's output is validated
+(``utils/validate.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from .config import ConvertOptions, resolve_device
 from .formats import get_handler
 from .formats.base import BaseFormat
 from .ops import filters, sh
+from .utils import checkpoint
 from .utils import ply as ply_io
 from .utils.log import StageTimer, debug_print, progress, status_print
+from .utils.validate import validate_cloud
 
 VALID_FORMATS = ["3dgs", "cc", "parquet", "splat", "ksplat", "spz", "sog", "compressed_ply"]
 
@@ -102,12 +111,8 @@ class Converter:
 
     # ------------------------------------------------------------------- run
     def run(self, **kwargs: Any) -> SplatCloud:
-        """Full pipeline.  ``checkpoint_dir=`` is not supported yet."""
-        if kwargs.get("checkpoint_dir"):
-            raise NotImplementedError(
-                "checkpoint_dir= is not ported to gsconverter_tpu_torch yet "
-                "(ROADMAP queue 1, checkpoint / resume / validate / transfer)"
-            )
+        """Full pipeline; ``checkpoint_dir=`` snapshots each filter stage and
+        resumes after the last complete snapshot."""
         # timing is module state (utils/log reads it at call time); scope it
         # to this conversion so library callers don't inherit it.
         prev_timing = config_mod.TIMING
@@ -120,6 +125,7 @@ class Converter:
 
     def _run_inner(self, **kwargs: Any) -> SplatCloud:
         opts = _opts_from_kwargs(kwargs)
+        ckpt_dir = kwargs.get("checkpoint_dir")
         with progress(100, "Converting",
                       "{desc}: {percentage:3.0f}% |{bar}| {n_fmt}/{total_fmt}") as pbar:
             # 1. detect
@@ -136,9 +142,28 @@ class Converter:
                 cloud = self.source_handler.read(self.input_path)
             pbar.update(25)
 
+            # resumable stages: restart after the last complete snapshot
+            stage_order = ["sh_cap", "bbox", "alpha", "density", "sor"]
+            resume_idx = -1
+            if ckpt_dir:
+                done = checkpoint.latest_stage(ckpt_dir, stage_order)
+                if done is not None:
+                    resume_idx = stage_order.index(done)
+                    status_print(f"Resuming from checkpointed stage '{done}'.")
+                    with self.timer.stage("checkpoint_load"):
+                        cloud = checkpoint.load(ckpt_dir, done)
+
             def run_stage(name, fn, cloud):
+                if stage_order.index(name) <= resume_idx:
+                    return cloud  # already restored from the snapshot
                 with self.timer.stage(name, cloud.n):
-                    return fn(cloud)
+                    cloud = fn(cloud)
+                if config_mod.DEBUG:
+                    validate_cloud(cloud, where=name)
+                if ckpt_dir:
+                    with self.timer.stage(f"checkpoint_save.{name}", cloud.n):
+                        checkpoint.save(cloud, ckpt_dir, name)
+                return cloud
 
             # 3. SH capping: min(source_active, requested, format limit)
             pbar.set_description("Processing")
@@ -193,9 +218,12 @@ class Converter:
             # pos/opacity, but a per-stage compaction gathers EVERY leaf.
             # The chain runs on a proxy cloud whose only full-size leaves
             # are pos/opacity plus a row-index extra; the surviving indices
-            # gather the real cloud ONCE after the chain.
+            # gather the real cloud ONCE after the chain.  Snapshots need
+            # every leaf after each stage, so checkpointing compacts per
+            # stage.
+            defer_compact = ckpt_dir is None and cloud.is_host
             full_cloud = None
-            if cloud.is_host and any_filter:
+            if defer_compact and any_filter:
                 full_cloud = cloud
                 n0 = cloud.n
                 empty = np.zeros((n0, 0), np.float32)
@@ -317,7 +345,10 @@ class Converter:
 
         Applies this format's own SH cap (min(content, requested, format
         limit)) and its RGB and extras policies, so the output is identical
-        to a full ``run()`` on the same source.
+        to a full ``run()`` on the same source.  As ``run()`` does, a cloud
+        whose metadata degree lies above its content (one fresh from a
+        reader) takes the content's degree; the JAX package's
+        ``write_processed`` keeps the metadata and writes its zero bands.
         """
         opts = _opts_from_kwargs(kwargs)
         if source_handler is not None:
@@ -330,6 +361,8 @@ class Converter:
         )
         if final_deg < source_deg:
             cloud = sh.cap_degree(cloud, final_deg)
+        else:
+            cloud = cloud.replace(active_sh_degree=min(cloud.active_sh_degree, final_deg))
         out = self._finalize_write(cloud, opts, kwargs)
         status_print(f"Conversion completed: Saved to {self.output_path}")
         return out

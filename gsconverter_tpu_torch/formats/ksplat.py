@@ -9,9 +9,13 @@ ksplat.py:379).  SH degree capped at 2.
 
 At level >= 1 the writer orders the rows by the compressed-PLY Morton key so
 that buckets are spatially tight, and sizes the block so no bucket-relative
-offset saturates (both as the JAX package does).  The packed record is the
-file, so encode and decode run on the host in numpy, the record streamed to
-the file in chunks; a cloud with tensor leaves is brought to the host first.
+offset saturates (both as the JAX package does).  The record is streamed
+to the file in chunks.  A host cloud encodes in numpy; a tensor cloud
+computes the Morton order, bucket centres, block size, quantized positions,
+colours and the rest of each chunk's record where its tensors live, and
+only the record's fields come to the host.  ``exp`` and ``sigmoid`` may
+differ from numpy's by an ulp: a level-0 scale by an ulp, an alpha byte or
+an f16 scale by one step.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from ..cloud import SH_C0, SplatCloud
 from ..ops import quant
 from ..ops.sh import effective_sh_degree
 from ..utils.log import debug_print, status_print
+from ..utils.transfer import to_host
 from .base import BaseFormat, register
 from .compressed_ply import morton_order
 
@@ -50,13 +56,76 @@ def _record_dtype(comp: int, sh_count: int) -> np.dtype:
     return np.dtype(rec)
 
 
-def _bucket_centers(pos: np.ndarray, bucket_size: int) -> np.ndarray:
+def _bucket_centers(pos, bucket_size: int):
     """AABB centers of consecutive buckets, the last padded by its last row
-    (reference ksplat.py:426-444)."""
+    (reference ksplat.py:426-444).  numpy or a tensor, as ``pos``."""
     pad = (-pos.shape[0]) % bucket_size
+    if isinstance(pos, torch.Tensor):
+        p = torch.cat([pos, pos[-1:].expand(pad, 3)]) if pad else pos
+        lo, hi = torch.aminmax(p.reshape(-1, bucket_size, 3), dim=1)
+        return (lo + hi) / 2.0
     p = np.concatenate([pos, np.repeat(pos[-1:], pad, axis=0)]) if pad else pos
     b = p.reshape(-1, bucket_size, 3)
     return (b.min(axis=1) + b.max(axis=1)) / 2.0
+
+
+def _encode_rows(c: SplatCloud, s: int, e: int, comp: int, centers, bucket_size: int,
+                 sf_inv: float, sh_dim: int, min_sh: float, max_sh: float) -> dict:
+    """Rows s:e of the record as numpy fields: numpy arithmetic on a host
+    cloud, torch on a tensor cloud's device (the same formulas)."""
+    host = c.is_host
+    xp_clip = np.clip if host else torch.clamp
+    xp_exp = np.exp if host else torch.exp
+    xp_round = np.round if host else torch.round
+
+    def as_u(a, np_dt, t_dt):
+        return a.astype(np_dt) if host else a.to(t_dt)
+
+    f = {}
+    rgb = as_u(xp_clip((0.5 + SH_C0 * c.sh_dc[s:e]) * 255.0, 0, 255), np.uint8, torch.uint8)
+    alpha = as_u(xp_clip(quant.sigmoid(c.opacity[s:e]) * 255.0, 0, 255),
+                 np.uint8, torch.uint8)
+    f["color"] = (np.concatenate([rgb, alpha[:, None]], axis=1) if host
+                  else torch.cat([rgb, alpha[:, None]], dim=1))
+    if comp == 0:
+        f["pos"] = c.pos[s:e]
+        f["scale"] = xp_exp(c.log_scale[s:e])
+        f["rot"] = c.quat[s:e]
+    else:
+        if host:
+            cidx = np.arange(s, e) // bucket_size
+            sqrt2 = quant.SQRT2
+        else:
+            cidx = torch.arange(s, e, device=c.pos.device) // bucket_size
+            # a CUDA divide by a Python scalar multiplies by its f32
+            # reciprocal: divide by a device tensor, as numpy divides
+            sqrt2 = torch.tensor(quant.SQRT2, dtype=torch.float32, device=c.pos.device)
+        qp = xp_round((c.pos[s:e] - centers[cidx]) * sf_inv) + SCALE_RANGE
+        f["pos"] = as_u(xp_clip(qp, 0, 65535), np.uint16, torch.int32)
+        f["scale"] = as_u(xp_exp(c.log_scale[s:e]), np.float16, torch.float16)
+        # the reader's integer convention, (u-32767.5)/32767.5*sqrt2
+        # (reference ksplat.py:225-226), not the reference writer's f16
+        # bits, so encode -> decode round-trips
+        f["rot"] = as_u(xp_clip(xp_round(c.quat[s:e] / sqrt2 * 32767.5 + 32767.5),
+                                0, 65535), np.uint16, torch.int32)
+    if sh_dim:
+        # degree-packed channel-major: R0..Rd, G0..Gd, B0..Bd
+        shc = c.sh_rest[s:e, :, :sh_dim].reshape(e - s, 3 * sh_dim)
+        if comp == 2:
+            # / 4.0 (max_sh - min_sh) is exact as a reciprocal multiply
+            f["sh"] = as_u(xp_clip((shc - min_sh) / (max_sh - min_sh) * 255.0, 0, 255),
+                           np.uint8, torch.uint8)
+        elif comp == 1:
+            f["sh"] = as_u(shc, np.float16, torch.float16)
+        else:
+            f["sh"] = shc
+    if host:
+        return f
+    out = {k: v.cpu().numpy() for k, v in f.items()}
+    if comp:
+        out["pos"] = out["pos"].astype(np.uint16)
+        out["rot"] = out["rot"].astype(np.uint16)
+    return out
 
 
 @register
@@ -183,8 +252,8 @@ class KSplatFormat(BaseFormat):
         bucket_size = int(kwargs.get("bucket_size") or 256)
         block_size = kwargs.get("block_size")
 
-        c = cloud if cloud.is_host else cloud.to_numpy()
-        if comp >= 1:
+        c = cloud
+        if comp >= 1 and c.n:
             # Morton order, so the buckets of consecutive rows are tight
             c = c.select(morton_order(c.pos))
         n = c.n
@@ -197,8 +266,14 @@ class KSplatFormat(BaseFormat):
                 # the smallest block in which no bucket-relative offset
                 # saturates (the reference hardcodes 5.0 and clips; the
                 # section header carries the value)
-                cidx = np.arange(n) // bucket_size
-                max_off = float(np.max(np.abs(c.pos - centers[cidx]))) if n else 0.0
+                if not n:
+                    max_off = 0.0
+                elif c.is_host:
+                    cidx = np.arange(n) // bucket_size
+                    max_off = float(np.max(np.abs(c.pos - centers[cidx])))
+                else:
+                    cidx = torch.arange(n, device=c.pos.device) // bucket_size
+                    max_off = float((c.pos - centers[cidx]).abs().amax())
                 block_size = max(2.0 * max_off * 1.001, 1e-3)
             else:
                 block_size = 5.0
@@ -251,39 +326,14 @@ class KSplatFormat(BaseFormat):
             if pfb:
                 f.write(struct.pack("<I", n % bucket_size))
             if comp >= 1:
-                f.write(centers.astype("<f4").tobytes())
+                f.write(to_host(centers).astype("<f4").tobytes())
             for s in range(0, n, STREAM_ROWS):
                 e = min(s + STREAM_ROWS, n)
                 out = buf[: e - s]
-                out["color"][:, :3] = np.clip(
-                    (0.5 + SH_C0 * c.sh_dc[s:e]) * 255.0, 0, 255).astype(np.uint8)
-                out["color"][:, 3] = np.clip(
-                    quant.sigmoid(c.opacity[s:e]) * 255.0, 0, 255).astype(np.uint8)
-                if comp == 0:
-                    out["pos"] = c.pos[s:e]
-                    out["scale"] = np.exp(c.log_scale[s:e])
-                    out["rot"] = c.quat[s:e]
-                else:
-                    cidx = np.arange(s, e) // bucket_size
-                    qp = np.round((c.pos[s:e] - centers[cidx]) * sf_inv) + SCALE_RANGE
-                    out["pos"] = np.clip(qp, 0, 65535).astype(np.uint16)
-                    out["scale"] = np.exp(c.log_scale[s:e]).astype(np.float16).view(np.uint16)
-                    # the reader's integer convention, (u-32767.5)/32767.5*sqrt2
-                    # (reference ksplat.py:225-226), not the reference
-                    # writer's f16 bits, so encode -> decode round-trips
-                    out["rot"] = np.clip(
-                        np.round(c.quat[s:e] / quant.SQRT2 * 32767.5 + 32767.5),
-                        0, 65535).astype(np.uint16)
-                if sh_count:
-                    # degree-packed channel-major: R0..Rd, G0..Gd, B0..Bd
-                    shc = np.ascontiguousarray(c.sh_rest[s:e, :, :sh_dim]).reshape(
-                        e - s, sh_count)
-                    if comp == 2:
-                        out["sh"] = np.clip((shc - min_sh) / (max_sh - min_sh) * 255.0,
-                                            0, 255).astype(np.uint8)
-                    elif comp == 1:
-                        out["sh"] = shc.astype(np.float16)
-                    else:
-                        out["sh"] = shc
+                for name, field in _encode_rows(c, s, e, comp, centers, bucket_size,
+                                                sf_inv, sh_dim, min_sh, max_sh).items():
+                    if name == "scale" and comp:
+                        field = field.view(np.uint16)
+                    out[name] = field
                 f.write(memoryview(out))
         status_print(f"KSplat (Level {comp}) write completed. {n} points.")

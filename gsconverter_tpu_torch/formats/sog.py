@@ -13,12 +13,19 @@ package writes it:
     256 codebook, 64-wide centroid index image + u16 label image; meta.json
     version 2.
 
-Clouds stay host-resident from read to write.  The textures and the scalar
-codebooks are encoded in numpy on host threads, while the shN palette is
-fitted by ``ops.kmeans.kmeans_chunked`` on the writer's ``device`` (kernel
-K2 on the card); the fit is only waited for when its centroids are pulled.
-A cloud with tensor leaves is brought to the host first: the JAX package's
-device-resident encode branch is not ported (ROADMAP queue 1).
+A host cloud's textures and scalar codebooks are encoded in numpy on host
+threads, while the shN palette is fitted by ``ops.kmeans.kmeans_chunked`` on
+the writer's ``device`` (kernel K2 on the card); the fit is only waited for
+when its centroids are pulled.  A tensor cloud keeps the host branch's
+semantics and runs its stages where its tensors live: the Morton order, the
+u16 positions, rotations, opacity, the shN u8 pre-quantization and its
+dequantization, the palette fit and the nearest-codebook lookups.  Its
+256-entry codebooks are fitted on the host as the host branch fits them,
+from the same numpy-drawn subsample gathered on the device.  (The JAX
+package's device branch differs: it fits the palette on raw f32 values and
+the codebooks by device K-Means.)  ``log1p``, ``exp`` and the square root of
+the rotation norm may differ from numpy's by an ulp, moving a texel by one
+step.  An empty cloud raises ``ValueError``: a texture needs a pixel.
 """
 
 from __future__ import annotations
@@ -117,16 +124,28 @@ def _dequant_u8(q8: torch.Tensor, scale: float, mn: float) -> torch.Tensor:
     return (q8.to(torch.float64) * s64 + m64).to(torch.float32)
 
 
-def _fit_scalar_codebook_host(vals: np.ndarray, seed: int) -> np.ndarray:
+def _codebook_sample(vals, seed: int) -> np.ndarray:
+    """The codebook fit's <=50k subsample as host f32: indices drawn by
+    numpy from ``seed``, gathered where ``vals`` lives (numpy or a tensor,
+    whose 200 KB sample alone comes to the host)."""
+    size = vals.numel() if isinstance(vals, torch.Tensor) else np.size(vals)
+    idx = None
+    if size > 50000:
+        idx = np.random.default_rng(seed).choice(size, 50000, replace=False)
+    if isinstance(vals, torch.Tensor):
+        v = vals.reshape(-1)
+        if idx is not None:
+            v = v[torch.from_numpy(idx).to(v.device)]
+        return v.to(torch.float32).cpu().numpy()
+    v = np.asarray(vals, np.float32).reshape(-1)
+    return v if idx is None else v[idx]
+
+
+def _fit_scalar_codebook_host(vals, seed: int) -> np.ndarray:
     """Host 1-D Lloyd on a <=50k subsample: quantile init + searchsorted
     assignment + bincount update (256 sorted entries, empty clusters keep
     their previous centroid, fixed 20 iterations)."""
-    v = np.asarray(vals, np.float32).reshape(-1)
-    if v.size > 50000:
-        idx = np.random.default_rng(seed).choice(v.size, 50000, replace=False)
-        fit = v[idx]
-    else:
-        fit = v
+    fit = _codebook_sample(vals, seed)
     if fit.size == 0:
         return np.zeros(256, np.float32)
     fs = np.sort(fit)
@@ -141,9 +160,17 @@ def _fit_scalar_codebook_host(vals: np.ndarray, seed: int) -> np.ndarray:
     return np.sort(c).astype(np.float32)
 
 
-def morton_order(pos: np.ndarray) -> np.ndarray:
+def morton_order(pos):
     """The writer's splat order: stable argsort of 10-bit-per-axis Morton
-    codes of the positions normalized to their bounds."""
+    codes of the positions normalized to their bounds.  numpy in, numpy out;
+    a tensor in, an int64 order on its device out."""
+    if isinstance(pos, torch.Tensor):
+        mins3 = pos.amin(dim=0)
+        rng3 = pos.amax(dim=0) - mins3
+        t01 = (pos - mins3) / torch.where(rng3 > 0, rng3, 1.0)
+        gq = (t01 * 1023.0).to(torch.int64)
+        return torch.sort(quant.morton3_u32(gq[:, 0], gq[:, 1], gq[:, 2]),
+                          stable=True).indices
     mins3 = pos.min(axis=0)
     rng3 = pos.max(axis=0) - mins3
     t01 = (pos - mins3) / np.where(rng3 > 0, rng3, 1.0)
@@ -171,6 +198,8 @@ def shn_u8(rest_sl: np.ndarray, n: int, coeffs: int):
     """The shN u8 pre-quantization: (q8 [n, coeffs] u8, scale, min), bounds
     from a strided sample (u8 is below the format's own 256-codebook
     precision floor)."""
+    if isinstance(rest_sl, torch.Tensor):
+        return _shn_u8_torch(rest_sl, n, coeffs)
     samp = rest_sl[::97].astype(np.float32)
     shq_min = float(samp.min()) if samp.size else 0.0
     mx = float(samp.max()) if samp.size else 1.0
@@ -181,6 +210,20 @@ def shn_u8(rest_sl: np.ndarray, n: int, coeffs: int):
     for s in range(0, n, 262144):
         blk = rest_sl[s:s + 262144].reshape(-1, coeffs)
         q8[s:s + 262144] = np.clip((blk - shq_min) * inv + 0.5, 0, 255)
+    return q8, shq_scale, shq_min
+
+
+def _shn_u8_torch(rest_sl: torch.Tensor, n: int, coeffs: int):
+    """``shn_u8`` on the device: the same bounds (two floats read back) and
+    the same f32 steps, each a separate op so none is contracted."""
+    lo, hi = torch.aminmax(rest_sl[::97].to(torch.float32))
+    shq_min, mx = float(lo), float(hi)
+    shq_scale = (mx - shq_min) / 255.0 or 1.0
+    inv = 1.0 / shq_scale
+    q8 = torch.empty((n, coeffs), dtype=torch.uint8, device=rest_sl.device)
+    for s in range(0, n, 1 << 20):
+        blk = rest_sl[s:s + (1 << 20)].reshape(-1, coeffs)
+        q8[s:s + (1 << 20)] = torch.clamp((blk - shq_min) * inv + 0.5, 0, 255).to(torch.uint8)
     return q8, shq_scale, shq_min
 
 
@@ -255,22 +298,26 @@ class SogFormat(BaseFormat):
 
     # ---------------------------------------------------------------- write
     def write(self, cloud: SplatCloud, path: str, device=None, **kwargs) -> None:
-        """Write ``cloud`` to ``path``; the shN palette is fitted on ``device``
-        (default the card)."""
+        """Write ``cloud`` to ``path``.  A host cloud's shN palette is fitted
+        on ``device`` (default the card); a tensor cloud's stages run where
+        its tensors live."""
         if Image is None:
             raise ImportError("Pillow is required to write .sog files.")
-        dev = resolve_device(device)
-        if not cloud.is_host:
-            cloud = cloud.to_numpy()
+        n = cloud.n
+        if n == 0:
+            raise ValueError("SOG: cannot write an empty cloud (its textures "
+                             "need at least one splat)")
+        dev = resolve_device(device) if cloud.is_host else cloud.pos.device
         t_last = [time.perf_counter()]
 
         def mark(tag):
             if config.TIMING:
+                if not cloud.is_host and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)  # the stage's own device time
                 now = time.perf_counter()
                 status_print(f"[timing] sog.{tag}: {(now - t_last[0]) * 1e3:.0f} ms")
                 t_last[0] = now
 
-        n = cloud.n
         width = int(np.ceil(np.sqrt(n) / 4) * 4)
         height = int(np.ceil(n / width / 4) * 4)
         npix = width * height
@@ -283,7 +330,50 @@ class SogFormat(BaseFormat):
         num_chunks = k_per_chunk = 0
         if sh_bands > 0:
             num_chunks, k_per_chunk = palette_size(n, comp_level)
+        encode = self._encode_host if cloud.is_host else self._encode_tensor
+        (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
+         op_u8, fit) = encode(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark)
 
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf, \
+                _ImageBundle(zf, width, height) as bundle:
+            self._write_textures(bundle, npix, n, u16, q_u8, q_alpha, scl_idx,
+                                 dc_idx, op_u8)
+            mark("texture_imgs")
+            shN_meta = None
+            if sh_bands > 0:
+                shN_meta = self._write_palette(bundle, fit, sh_bands, comp_level, n,
+                                               npix, mark, on_device=not cloud.is_host)
+            meta = {
+                "version": 2,
+                "asset": {"generator": "gsconverter-tpu-sog"},
+                "count": n,
+                "means": {
+                    "mins": [float(x) for x in np.asarray(mins)],
+                    "maxs": [float(x) for x in np.asarray(maxs)],
+                    "files": ["means_l.webp", "means_u.webp"],
+                },
+                "scales": {
+                    "codebook": [float(x) for x in scale_cb],
+                    "files": ["scales.webp"],
+                },
+                "quats": {"files": ["quats.webp"]},
+                "sh0": {
+                    "codebook": [float(x) for x in color_cb],
+                    "files": ["sh0.webp"],
+                },
+            }
+            if shN_meta:
+                meta["shN"] = shN_meta
+            mark("labels+meta")
+            bundle.flush()  # concurrent WebP encodes, then zip entries
+            mark("webp_flush")
+            zf.writestr(_zentry("meta.json"), json.dumps(meta))
+        status_print(f"SOG write completed to {path}. {n} points bundled.")
+
+    @staticmethod
+    def _encode_host(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark):
+        """Host cloud: numpy encodes on a 2-thread pool, the palette fit
+        dispatched on ``dev`` meanwhile."""
         # one serial phase (Morton order, which every later stage consumes),
         # then the [order]-indexed encodes run on a 2-worker pool (numpy
         # releases the GIL) while the main thread quantizes shN, uploads it
@@ -348,42 +438,53 @@ class SogFormat(BaseFormat):
                     f.cancel()
                 raise
         mark("encode_threads_join")
+        return (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
+                op_u8, fit)
 
-        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf, \
-                _ImageBundle(zf, width, height) as bundle:
-            self._write_textures(bundle, npix, n, u16, q_u8, q_alpha, scl_idx,
-                                 dc_idx, op_u8)
-            mark("texture_imgs")
-            shN_meta = None
-            if sh_bands > 0:
-                shN_meta = self._write_palette(bundle, fit, sh_bands, comp_level, n,
-                                               npix, mark)
-            meta = {
-                "version": 2,
-                "asset": {"generator": "gsconverter-tpu-sog"},
-                "count": n,
-                "means": {
-                    "mins": [float(x) for x in np.asarray(mins)],
-                    "maxs": [float(x) for x in np.asarray(maxs)],
-                    "files": ["means_l.webp", "means_u.webp"],
-                },
-                "scales": {
-                    "codebook": [float(x) for x in scale_cb],
-                    "files": ["scales.webp"],
-                },
-                "quats": {"files": ["quats.webp"]},
-                "sh0": {
-                    "codebook": [float(x) for x in color_cb],
-                    "files": ["sh0.webp"],
-                },
-            }
-            if shN_meta:
-                meta["shN"] = shN_meta
-            mark("labels+meta")
-            bundle.flush()  # concurrent WebP encodes, then zip entries
-            mark("webp_flush")
-            zf.writestr(_zentry("meta.json"), json.dumps(meta))
-        status_print(f"SOG write completed to {path}. {n} points bundled.")
+    @staticmethod
+    def _encode_tensor(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark):
+        """Tensor cloud: every stage on its device, the host branch's
+        arithmetic; the textures' bytes, the bounds and the codebook samples
+        come to the host."""
+        order = morton_order(cloud.pos.to(torch.float32))
+        mark("morton_order")
+        p = cloud.pos[order]
+        lp = torch.copysign(torch.log1p(p.abs()), p)
+        mins, maxs = torch.aminmax(lp, dim=0)
+        rng = torch.where(maxs - mins > 0, maxs - mins, 1.0)
+        u16 = torch.clamp((lp - mins) / rng * 65535.0, 0, 65535).to(torch.int32)
+        u16 = u16.cpu().numpy().astype(np.uint16)
+        mins, maxs = mins.cpu().numpy(), maxs.cpu().numpy()
+        mark("positions")
+        q_u8, q_alpha = (a.cpu().numpy() for a in quant.pack_rot_sog(cloud.quat[order]))
+        mark("rotations")
+        status_print("Clustering Scales...")
+        status_print("Clustering Colors...")
+        cbs, idxs = [], []
+        for seed, leaf in ((1, cloud.log_scale), (2, cloud.sh_dc)):
+            vals = leaf[order]
+            cb = _fit_scalar_codebook_host(vals, seed=seed)
+            cbs.append(cb)
+            idxs.append(quant.nearest_codebook_index(
+                vals, torch.from_numpy(cb).to(dev)).to(torch.uint8).cpu().numpy())
+        mark("scalar_codebooks")
+        op_u8 = torch.clamp(quant.sigmoid(cloud.opacity[order]) * 255.0, 0, 255)
+        op_u8 = op_u8.to(torch.uint8).cpu().numpy()
+        fit = None
+        if sh_bands > 0:
+            coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
+            # degree-packed channel-major [R0..Rp-1, G0.., B0..]
+            q8, shq_scale, shq_min = shn_u8(cloud.sh_rest[:, :, :coeffs0 // 3], n, coeffs0)
+            q8 = q8[order]
+            mark("shN_quant_u8")
+            status_print(
+                f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
+                f"chunks={num_chunks} (batched K-Means on {dev.type})")
+            fit = kmeans_chunked(_dequant_u8(q8, shq_scale, shq_min), num_chunks,
+                                 k_per_chunk, max_iter=10, seed=100)
+            mark("shN_fit_dispatch")
+        return (u16, mins, maxs, q_u8, q_alpha, cbs[0], idxs[0], cbs[1], idxs[1],
+                op_u8, fit)
 
     @staticmethod
     def _write_textures(bundle, npix, n, u16, q_u8, q_alpha, scl_idx, dc_idx, op_u8):
@@ -410,14 +511,19 @@ class SogFormat(BaseFormat):
         bundle.add("sh0.webp", sh0_img)
 
     @staticmethod
-    def _write_palette(bundle, fit, sh_bands, comp_level, n, npix, mark) -> dict:
+    def _write_palette(bundle, fit, sh_bands, comp_level, n, npix, mark,
+                       on_device=False) -> dict:
         coeffs = COEFFS_FOR_DEGREE[sh_bands]
         per_color = coeffs // 3
         status_print(f"SOG Write Quality Level: {comp_level} (0=Max, 9=Min)")
         # the first wait for the device: the fit was dispatched before the
         # host stages above
         c, l = fit
-        centroids = c.cpu().numpy()
+        if on_device:
+            # the codebook's sample and the lookups where the centroids live
+            centroids = c
+        else:
+            centroids = c.cpu().numpy()
         mark("shN_fit+centroids_pull")
         labels = l.cpu().numpy().astype(np.uint16)  # palette ids fit u16
         mark("shN_labels_pull")
@@ -425,7 +531,12 @@ class SogFormat(BaseFormat):
 
         status_print("Clustering SH Centroids into Codebook...")
         cbN = _fit_scalar_codebook_host(centroids.reshape(-1), seed=3)
-        cent_idx = quant.nearest_codebook_index(centroids.reshape(-1), cbN).astype(np.uint8)
+        if on_device:
+            cent_idx = quant.nearest_codebook_index(
+                centroids.reshape(-1), torch.from_numpy(cbN).to(c.device))
+            cent_idx = cent_idx.to(torch.uint8).cpu().numpy()
+        else:
+            cent_idx = quant.nearest_codebook_index(centroids.reshape(-1), cbN).astype(np.uint8)
 
         # centroid-index image: [P, coeffs] channel-major -> [P, per_color, 3]
         # pixels laid out 64 palette entries per row

@@ -15,8 +15,10 @@ Quantization contract (``ops.quant`` and here):
 
 The writer emits version 3 with flags=1 (FlagAntialiased), as the reference
 does, and gzips with ``mtime=0`` so a rerun writes the same bytes.  Encode
-and decode run on the host in numpy; a cloud with tensor leaves is brought
-to the host first.
+and decode of a host cloud run in numpy.  A tensor cloud is quantized where
+its tensors live (``ops.quant``'s torch branches, the same arithmetic), and
+only the quantized sections come to the host for the gzip; ``sigmoid`` may
+differ from numpy's by an ulp, moving an alpha byte by one step.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ import gzip
 import struct
 
 import numpy as np
+import torch
 
 from ..cloud import DIM_FOR_DEGREE, SplatCloud
 from ..ops import quant, sh
 from ..ops.sh import effective_sh_degree
 from ..utils.log import debug_print, status_print
+from ..utils.transfer import to_host
 from .base import BaseFormat, register
 
 MAGIC = 0x5053474E
@@ -37,11 +41,16 @@ COLOR_SCALE = 0.15
 
 
 def _encode_core(pos, opacity, sh_dc, log_scale, quat):
-    """(pos 24-bit [N,3,3], alpha, color [N,3], scales [N,3], rotation u32)."""
+    """(pos 24-bit [N,3,3], alpha, color [N,3], scales [N,3], rotation u32),
+    numpy in, numpy out; tensors in, tensors on their device out."""
     pos_b = quant.pos_to_fixed24(pos, 12)
     alpha = quant.logit_to_u8(opacity)
-    col = np.clip((sh_dc * COLOR_SCALE + 0.5) * 255.0, 0, 255).astype(np.uint8)
-    scales = np.clip((log_scale + 10.0) * 16.0, 0, 255).astype(np.uint8)
+    if isinstance(pos, torch.Tensor):
+        col = torch.clamp((sh_dc * COLOR_SCALE + 0.5) * 255.0, 0, 255).to(torch.uint8)
+        scales = torch.clamp((log_scale + 10.0) * 16.0, 0, 255).to(torch.uint8)
+    else:
+        col = np.clip((sh_dc * COLOR_SCALE + 0.5) * 255.0, 0, 255).astype(np.uint8)
+        scales = np.clip((log_scale + 10.0) * 16.0, 0, 255).astype(np.uint8)
     rot = quant.pack_rot_spz(quat)
     return pos_b, alpha, col, scales, rot
 
@@ -51,6 +60,8 @@ def _encode_sh(sh_rest_flat_interleaved, sh_dim: int):
     q5 = quant.quant_sh_spz(sh_rest_flat_interleaved[:, :9], 5)
     if sh_dim > 3:
         q4 = quant.quant_sh_spz(sh_rest_flat_interleaved[:, 9:], 4)
+        if isinstance(q5, torch.Tensor):
+            return torch.cat([q5, q4], dim=1)
         return np.concatenate([q5, q4], axis=1)
     return q5
 
@@ -123,20 +134,26 @@ class SpzFormat(BaseFormat):
         )
 
     def write(self, cloud: SplatCloud, path: str, **kwargs) -> None:
-        c = cloud if cloud.is_host else cloud.to_numpy()
+        c = cloud
         n = c.n
         sh_deg = effective_sh_degree(c, kwargs, self.max_sh_degree)
         debug_print(f"[DEBUG] SPZ Write: effective SH degree {sh_deg} (from content).")
 
+        # host: numpy; tensors: quantized on their device, then pulled
         pos_b, alpha, col, scales, rot = _encode_core(
             c.pos, c.opacity, c.sh_dc, c.log_scale, c.quat)
-        parts = [pos_b.reshape(n, 9).tobytes(), alpha.tobytes(), col.tobytes(),
-                 scales.tobytes(), rot.astype("<u4").tobytes()]
+        parts = [to_host(pos_b).reshape(n, 9).tobytes(), to_host(alpha).tobytes(),
+                 to_host(col).tobytes(), to_host(scales).tobytes(),
+                 to_host(rot).astype("<u4").tobytes()]
         sh_dim = DIM_FOR_DEGREE[sh_deg]
         if sh_dim > 0:
             # canonical [N,3,15] channel-major -> coeff-major R0,G0,B0,...
-            inter = np.transpose(c.sh_rest[:, :, :sh_dim], (0, 2, 1)).reshape(n, sh_dim * 3)
-            parts.append(np.ascontiguousarray(_encode_sh(inter, sh_dim)).tobytes())
+            if c.is_host:
+                inter = np.transpose(c.sh_rest[:, :, :sh_dim], (0, 2, 1))
+            else:
+                inter = c.sh_rest[:, :, :sh_dim].transpose(1, 2)
+            inter = inter.reshape(n, sh_dim * 3)
+            parts.append(np.ascontiguousarray(to_host(_encode_sh(inter, sh_dim))).tobytes())
 
         header = struct.pack("<IIIBBBB", MAGIC, 3, n, sh_deg, 12, 1, 0)
         comp_level = int(kwargs.get("compression_level", 0) or 0)

@@ -11,16 +11,22 @@ s in [0,1] maps to voxel = max(0.1, 2.0 - 1.8 s), threshold = 0.1 + 0.9 s
 The reference's Python BFS is serial; clusters are labelled here by
 iterative min-label propagation + pointer jumping over the 6-neighbour
 voxel graph, O(log diameter) rounds of vectorized gathers over the table of
-occupied voxels.  This module holds the host numpy path, the one a
-host-resident cloud takes; the device path over tensors is still to port.
+occupied voxels.  Host numpy positions take ``_density_mask_host``; tensor
+positions take ``_density_mask_torch`` on their device, the JAX package's
+device path: one key sort carrying the unsort payload, one scalar read back
+(the occupied-voxel count), segment max/sum into the voxel table, the
+searchsorted adjacency and the propagation loop over that table.
 
-Grid keys are exact 30-bit int32 packs (1024 cells/axis) when the scene
-fits; wider scenes pack exact 60-bit int64 keys (1M cells/axis).
+Grid keys are exact 30-bit packs (1024 cells/axis) when the scene fits;
+wider scenes pack exact 60-bit keys (1M cells/axis).  The host path picks
+the width from the floored voxel extent, the device path from the position
+extent over the voxel size, as the JAX package's two paths do.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 GRID_BITS = 10
 GRID_MAX = (1 << GRID_BITS) - 1
@@ -124,18 +130,108 @@ def _density_mask_host(
     return vox_keep[np.searchsorted(uniq, keys)]
 
 
+def _density_mask_torch(
+    pos: torch.Tensor,
+    voxel_size: float,
+    threshold_percentage: float,
+    keep_multicluster: bool,
+) -> torch.Tensor:
+    """Tensor path on ``pos``'s device (JAX ``_density_stage1/2`` and
+    ``_density_gather``).  Keys are int64 on both grids (torch has no ``<<``
+    on uint32 on the CPU); the sort order and every key compare are those
+    of the JAX package's int32 / int64 keys.  ``min_points`` is formed in
+    f32, as the JAX device path forms it (the host path uses ``int()`` of an
+    f64 product; the two differ where the product lies within an f32 ulp of
+    an integer)."""
+    n = pos.shape[0]
+    dev = pos.device
+    f32 = torch.float32
+    pos = pos.to(f32)
+    extent = float((pos.amax(dim=0) - pos.amin(dim=0)).amax())
+    bits = GRID_BITS if extent / float(voxel_size) <= GRID_MAX else WIDE_BITS
+    gmax = (1 << bits) - 1
+    # divide by a device tensor: a CUDA divide by a Python scalar multiplies
+    # by its f32 reciprocal, which is not the f32 quotient
+    vox = torch.floor(pos / torch.tensor(voxel_size, dtype=f32, device=dev))
+    base = vox.amin(dim=0)
+    ci = torch.clamp(vox - base, 0, gmax).to(torch.int64)
+    del vox
+    keys = (ci[:, 0] << (2 * bits)) | (ci[:, 1] << bits) | ci[:, 2]
+    del ci
+
+    skeys, order = torch.sort(keys, stable=True)
+    is_first = torch.ones(n, dtype=torch.bool, device=dev)
+    is_first[1:] = skeys[1:] != skeys[:-1]
+    voxel_id_sorted = torch.cumsum(is_first, 0) - 1
+    inv = torch.empty(n, dtype=torch.int64, device=dev)
+    inv[order] = voxel_id_sorted
+    m = int(voxel_id_sorted[-1]) + 1  # the one scalar read back: n_vox
+
+    # voxel table: unique keys (ascending) and counts by segment max / sum
+    uniq = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    uniq = uniq.scatter_reduce(0, voxel_id_sorted, skeys, "amax")
+    counts = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
+        0, voxel_id_sorted, torch.ones_like(voxel_id_sorted))
+    t32 = (np.float32(threshold_percentage) / np.float32(100.0)) * np.float32(n)
+    min_points = int(t32.astype(np.int32))
+    dense = counts >= min_points
+
+    # 6-neighbour adjacency among dense voxels via searchsorted
+    ux, uy, uz = uniq >> (2 * bits), (uniq >> bits) & gmax, uniq & gmax
+    offs = torch.tensor(
+        [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+        dtype=torch.int64, device=dev)
+    ncoord = torch.stack([ux, uy, uz], dim=1)[:, None, :] + offs[None, :, :]
+    in_grid = ((ncoord >= 0) & (ncoord <= gmax)).all(dim=-1)
+    nkeys = ((ncoord[..., 0] << (2 * bits)) | (ncoord[..., 1] << bits)
+             | ncoord[..., 2])
+    loc = torch.searchsorted(uniq, nkeys.reshape(-1)).reshape(m, 6)
+    loc = torch.clamp(loc, 0, m - 1)
+    found = (uniq[loc] == nkeys) & in_grid
+    neigh_idx = torch.where(dense[loc] & found, loc, m)  # [m, 6]
+
+    # min-label propagation with pointer jumping, until nothing changes
+    labels = torch.where(dense, torch.arange(m, device=dev), m)
+    sentinel = torch.full((1,), m, dtype=torch.int64, device=dev)
+    while True:
+        padded = torch.cat([labels, sentinel])
+        nl = padded[neigh_idx].amin(dim=1)
+        new = torch.where(dense, torch.minimum(labels, nl), labels)
+        new = torch.where(dense, torch.minimum(new, padded[new]), new)
+        new = torch.where(dense, torch.minimum(new, padded[padded[new]]), new)
+        if torch.equal(new, labels):
+            break
+        labels = new
+
+    # cluster sizes in voxels (the reference counts voxels, not points)
+    lab = torch.clamp(labels, 0, m - 1)
+    sizes = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
+        0, lab, dense.to(torch.int64))
+    if keep_multicluster:
+        # f32, as the JAX device path compares
+        keep_cluster = sizes.to(f32) >= (sizes.amax().to(f32)
+                                         * torch.tensor(0.05, dtype=f32, device=dev))
+    else:
+        # the single largest cluster; argmax returns the first on ties
+        keep_cluster = torch.arange(m, device=dev) == torch.argmax(sizes)
+    vox_keep = dense & keep_cluster[lab]
+    return vox_keep[inv]
+
+
 def density_mask(
-    pos: np.ndarray,
+    pos,
     voxel_size: float,
     threshold_percentage: float,
     keep_multicluster: bool = False,
-) -> np.ndarray:
-    """Keep-mask for the density filter over host positions [N,3]."""
-    if not isinstance(pos, np.ndarray):
-        raise NotImplementedError(
-            "density_mask on device tensors is not ported yet (ROADMAP "
-            "queue 1, density device path); pass host numpy positions"
-        )
+):
+    """Keep-mask for the density filter over positions [N,3]: numpy in,
+    numpy out on the host path; a tensor in, a bool tensor on its device
+    out on the tensor path."""
+    if isinstance(pos, torch.Tensor):
+        if pos.shape[0] == 0:
+            return torch.zeros(0, dtype=torch.bool, device=pos.device)
+        return _density_mask_torch(pos, float(voxel_size),
+                                   float(threshold_percentage), keep_multicluster)
     if pos.shape[0] == 0:
         return np.zeros(0, bool)
     return _density_mask_host(

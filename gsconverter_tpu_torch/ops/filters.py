@@ -4,7 +4,9 @@ Replacement for the reference's mutating ``DataProcessor``
 (processing/data_processor.py): every filter computes a keep-mask over the
 cloud and compacts it.  Exact parameter semantics preserved.  bbox, alpha
 and density run where the cloud's leaves live (host numpy for a cloud fresh
-from a reader); SOR runs on the ``device`` it is given.
+from a reader, tensors on their device for a device cloud), and so does SOR
+on a device cloud; a host cloud's SOR runs on the ``device`` it is given.
+A device cloud is compacted on its device (``compaction.compact``).
 """
 
 from __future__ import annotations
@@ -84,8 +86,9 @@ def remove_flyers(
 ) -> SplatCloud:
     """SOR filter (reference data_processor.py:119-182; intended-mask semantics).
 
-    Positions go to ``device``, where ``sor_mask`` runs (kernel K1 on a CUDA
-    device); a host cloud gets the keep-mask back as numpy for its compaction.
+    ``sor_mask`` runs where a device cloud's positions live; a host cloud's
+    positions go to ``device`` (kernel K1 on a CUDA device) and the keep-mask
+    comes back as numpy for its compaction.
     """
     if intensity is not None:
         k, threshold_factor = sor_ops.intensity_to_params(intensity)
@@ -95,11 +98,10 @@ def remove_flyers(
     if cloud.is_host:
         # writable contiguous f32 (leaves may be read-only views of the file)
         pos = torch.from_numpy(np.require(cloud.pos, np.float32, ["C", "W"]))
-    else:
-        pos = cloud.pos
-    mask = sor_ops.sor_mask(pos.to(device), int(k), float(threshold_factor))
-    if cloud.is_host:
+        mask = sor_ops.sor_mask(pos.to(device), int(k), float(threshold_factor))
         mask = mask.cpu().numpy()
+    else:
+        mask = sor_ops.sor_mask(cloud.pos, int(k), float(threshold_factor))
     return _apply_mask(cloud, mask, "removing flyers")
 
 
@@ -108,8 +110,12 @@ def auto_bbox(cloud: SplatCloud) -> SplatCloud:
     if cloud.n == 0:
         status_print("Auto-BBox: No points remaining. Bounding box is undefined.")
         return cloud
-    pos = cloud.pos if cloud.is_host else cloud.pos.cpu().numpy()
-    mins, maxs = pos.min(axis=0), pos.max(axis=0)
+    if cloud.is_host:
+        mins, maxs = cloud.pos.min(axis=0), cloud.pos.max(axis=0)
+    else:
+        # reduced on the device; six floats come back
+        mins, maxs = torch.aminmax(cloud.pos, dim=0)
+        mins, maxs = mins.cpu().numpy(), maxs.cpu().numpy()
     status_print(
         f"Auto-BBox Applied: [{mins[0]:.4f}, {mins[1]:.4f}, {mins[2]:.4f}] "
         f"to [{maxs[0]:.4f}, {maxs[1]:.4f}, {maxs[2]:.4f}]"

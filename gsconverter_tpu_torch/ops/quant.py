@@ -27,22 +27,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..utils.transfer import is_host as _is_host
+
 SQRT1_2 = 0.7071067811865476
 SQRT2 = 1.4142135623730951
-
-
-def _is_host(a) -> bool:
-    return isinstance(a, (np.ndarray, np.generic))
 
 
 # ------------------------------------------------------------------ opacity
 
 
 def sigmoid(x):
+    """1/(1+exp(-x)), the same formula on both residencies."""
     if _is_host(x):
         with np.errstate(over="ignore"):
             return 1.0 / (1.0 + np.exp(-x))
-    return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def logit_to_u8(opacity_logit, clip: float = 20.0):
@@ -76,11 +75,20 @@ def u8_to_logit_splat(u8):
 # --------------------------------------------------------------- quaternion
 
 
+def _t_norm(q):
+    """||q|| over the last axis, keepdim: the squares added in index order
+    and a correctly rounded root, as ``np.linalg.norm`` forms it."""
+    s = q * q
+    acc = s[..., 0]
+    for i in range(1, q.shape[-1]):
+        acc = acc + s[..., i]
+    return _t_sqrt(acc)[..., None]
+
+
 def normalize_quat(q, eps: float = 1e-12):
     if _is_host(q):
         return q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), eps)
-    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
-                           min=eps)
+    return q / torch.clamp(_t_norm(q), min=eps)
 
 
 def quat_to_u8(q):
@@ -295,8 +303,13 @@ def pack_rot_sog(quat_wxyz):
         return u8, (252 + max_idx).astype(np.uint8)
     max_idx = torch.argmax(q.abs(), dim=1)
     max_val = torch.gather(q, 1, max_idx[:, None])
-    nrm = torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
-    q = q * (torch.where(max_val >= 0, SQRT2, -SQRT2) / nrm)
+    nrm = torch.clamp(_t_norm(q), min=1e-12)
+    # numpy forms the [N,1] scale from Python floats, so in f64, and the
+    # rest of the encode with it
+    f64 = torch.float64
+    sgn = torch.where(max_val >= 0, torch.tensor(SQRT2, dtype=f64, device=q.device),
+                      torch.tensor(-SQRT2, dtype=f64, device=q.device))
+    q = q.to(f64) * (sgn / nrm.to(f64))
     slots = torch.arange(3, device=q.device)[None, :]
     comp = slots + (slots >= max_idx[:, None]).to(slots.dtype)
     rest = torch.gather(q, 1, comp)

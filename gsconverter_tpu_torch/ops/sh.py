@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..cloud import DIM_FOR_DEGREE, SH_C0, SplatCloud
+from ..utils.transfer import is_host as _is_host
 
 # Degree-aware real SH basis constants (standard 3DGS evaluation set).
 SH_C1 = 0.4886025119029199
@@ -102,10 +103,6 @@ def cap_degree(cloud: SplatCloud, degree: int | None) -> SplatCloud:
         sh_rest=rest,
         active_sh_degree=min(cloud.active_sh_degree, degree),
     )
-
-
-def _is_host(a) -> bool:
-    return isinstance(a, (np.ndarray, np.generic))
 
 
 def rgb_linear_from_dc(sh_dc):

@@ -19,6 +19,13 @@ power-of-two bucket of N:
     is padded to a multiple of the kernel's 512-point block.
   - smaller N: ``_sor_window_loop``, an exact top-k within the window.
 
+``method="grid"`` is the JAX package's exact grid scan: collision-free
+30-bit cell keys (1024 cells/axis) over a density-adaptive cell size, the
+27 neighbouring cells' first ``cap`` points as candidates, and an exact
+top-k.  ``sor_mean_knn_dists`` exposes its mean-KNN distances.  Both
+methods fill missing neighbours by one rule: at the largest distance found,
+floored at the grid's search reach (one cell) for the grid.
+
 Known divergence from the reference (documented upstream): its CPU fallback
 computes the mask but never applies it; the mask is applied here.
 """
@@ -34,6 +41,11 @@ from .padding import PAD_POS, next_pow2, pad_rows, round_up
 from .quant import morton3_u32
 
 MAX_K = 50  # reference gpu_ops.py:119,244
+GRID_BITS = 10  # 1024 cells per axis (grid method)
+GRID_MAX = (1 << GRID_BITS) - 1
+KEY_SENTINEL = 0x7FFFFFFF  # the grid's key for invalid rows: sorts last
+TARGET_PER_CELL = 32  # reference gpu_ops.py:209
+DEFAULT_CAP = 64  # grid candidates gathered per neighbour cell
 KERNEL_BLOCK = 512  # points per block of kernel K1
 KERNEL_MIN_BUCKET = 4096  # next_pow2(n) from which K1 takes the pass
 _D_VALID_MAX = 1e12  # pad sentinels sit at PAD_POS=1e15; real pairs are closer
@@ -295,6 +307,145 @@ def _sor_md_window(pos: torch.Tensor, valid: torch.Tensor, k: int, window: int,
     return md
 
 
+# ------------------------------------------------------------ grid method
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as an f32 tensor on ``like``'s device.  Divisions take their
+    divisor so: a CUDA divide by a Python scalar multiplies by its f32
+    reciprocal, which is not the f32 quotient."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _cell_keys(pos: torch.Tensor, valid: torch.Tensor, mins: torch.Tensor,
+               cell: torch.Tensor):
+    """Cell coordinates [n, 3] and exact 30-bit cell keys (int64 holding the
+    JAX package's int32 values; invalid rows take ``KEY_SENTINEL``)."""
+    ci = torch.clamp(torch.floor((pos - mins) / cell), 0, GRID_MAX).to(torch.int64)
+    keys = (ci[:, 0] << (2 * GRID_BITS)) | (ci[:, 1] << GRID_BITS) | ci[:, 2]
+    return ci, torch.where(valid, keys, KEY_SENTINEL)
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """numpy's (and JAX's) nanmedian of a 1-D f32 tensor: an even count
+    averages the two middle values, where ``torch.nanmedian`` returns the
+    lower one.  NaN when every value is NaN.  Nothing is read back."""
+    v = torch.sort(x).values  # NaNs sort last
+    cnt = (~torch.isnan(x)).sum()
+    lo = v[torch.clamp(cnt - 1, min=0) // 2]
+    hi = v[torch.clamp(cnt // 2, max=x.shape[0] - 1)]
+    return torch.where(cnt > 0, lo * 0.5 + hi * 0.5, torch.nan)
+
+
+def _adaptive_cell_size(pos: torch.Tensor, valid: torch.Tensor,
+                        mins: torch.Tensor, extent: torch.Tensor) -> torch.Tensor:
+    """Density-adaptive cell size over the valid points: the median spacing
+    of Morton neighbours scaled to ~32 points a cell, then one occupancy
+    refinement toward that target.  An f32 scalar tensor."""
+    rng = torch.where(extent > 0, extent, 1.0)
+    t = torch.clamp((pos - mins) / rng, 0.0, 1.0)
+    g = (t * 1023.0).to(torch.int64)
+    mkey = torch.where(valid, morton3_u32(g[:, 0], g[:, 1], g[:, 2]), _MORTON_INVALID)
+    morder = torch.sort(mkey, stable=True).indices
+    mpos, mvalid = pos[morder], valid[morder]
+    gaps = _sqrt_rn(_sq_norm(mpos[1:] - mpos[:-1]))
+    gap_ok = mvalid[1:] & mvalid[:-1]
+    spacing = _nanmedian(torch.where(gap_ok, gaps, torch.nan))
+    spacing = torch.where(torch.isnan(spacing), 1.0, spacing)
+    reach = extent.amax() / _f32(GRID_MAX, pos)
+    cell = torch.clamp(spacing * TARGET_PER_CELL ** (1.0 / 3.0), min=1e-4)
+    cell = torch.maximum(cell, reach)
+
+    # one occupancy-driven refinement toward the 32/cell target
+    _, keys = _cell_keys(pos, valid, mins, cell)
+    sk = torch.sort(keys).values
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]
+    cid = torch.cumsum(first, 0) - 1
+    sv = sk != KEY_SENTINEL
+    occ = torch.zeros(sk.shape[0], dtype=torch.float32, device=pos.device)
+    occ.index_add_(0, cid, sv.to(torch.float32))
+    occ_med = _nanmedian(torch.where(sv, occ[cid], torch.nan))
+    occ_med = torch.where(torch.isnan(occ_med), 1.0, occ_med)
+    factor = torch.clamp(
+        (_f32(TARGET_PER_CELL, pos) / torch.clamp(occ_med, min=1.0)) ** (1.0 / 3.0),
+        0.25, 4.0)
+    cell = torch.maximum(cell * factor, reach)
+    return torch.clamp(cell, min=1e-4)
+
+
+def _sor_grid_bin(pos: torch.Tensor, valid: torch.Tensor):
+    """Adaptive cell size and collision-free cell binning (one sort)."""
+    mins = torch.where(valid[:, None], pos, PAD_POS).amin(dim=0)
+    maxs = torch.where(valid[:, None], pos, -PAD_POS).amax(dim=0)
+    cell = _adaptive_cell_size(pos, valid, mins, maxs - mins)
+    ci, keys = _cell_keys(pos, valid, mins, cell)
+    skeys, order = torch.sort(keys, stable=True)
+    return order, skeys, pos[order], valid[order], ci[order], cell
+
+
+def _sor_grid_loop(skeys, spos, svalid, ci_sorted, cell, k: int, cap: int,
+                   block: int) -> torch.Tensor:
+    """Mean of the k nearest among the 27 neighbouring cells' first ``cap``
+    points each, ``block`` points at a time (Morton-sorted order)."""
+    n = spos.shape[0]
+    dev = spos.device
+    d = torch.arange(-1, 2, device=dev)
+    offs = torch.stack(torch.meshgrid(d, d, d, indexing="ij"), dim=-1).reshape(27, 3)
+    ar = torch.arange(cap, device=dev)
+    out = []
+    for b0 in range(0, n, block):
+        bpos, bci = spos[b0:b0 + block], ci_sorted[b0:b0 + block]
+        b = bpos.shape[0]
+        ncells = bci[:, None, :] + offs[None, :, :]  # [b, 27, 3]
+        valid_cell = ((ncells >= 0) & (ncells <= GRID_MAX)).all(dim=-1)
+        nkeys = ((ncells[..., 0] << (2 * GRID_BITS)) | (ncells[..., 1] << GRID_BITS)
+                 | ncells[..., 2]).reshape(-1)
+        start = torch.searchsorted(skeys, nkeys).reshape(b, 27)
+        end = torch.searchsorted(skeys, nkeys, right=True).reshape(b, 27)
+        idx = start[..., None] + ar  # [b, 27, cap]
+        ok = (idx < end[..., None]) & valid_cell[..., None]
+        idx = torch.clamp(idx, 0, n - 1).reshape(b, 27 * cap)
+        ok = ok.reshape(b, 27 * cap) & svalid[idx]
+        d2 = _sq_norm(spos[idx] - bpos[:, None, :])
+        d2 = torch.where(ok & (d2 > 1e-12), d2, torch.inf)  # drop self, invalid
+        dk2 = torch.topk(d2, k, dim=1, largest=False).values
+        found = torch.isfinite(dk2)
+        dist = _sqrt_rn(torch.where(found, dk2, 0.0))
+        cnt = found.sum(dim=1)
+        # the shared missing-neighbour rule: fill at the largest found
+        # distance, floored at the search reach (one cell ring), so isolated
+        # points rank as outliers
+        fill = (k - cnt).to(torch.float32) * torch.maximum(dist.amax(dim=1), cell)
+        out.append((dist.sum(dim=1) + fill) / _f32(float(k), spos))
+    return torch.cat(out)
+
+
+def _sor_md_grid(pos: torch.Tensor, valid: torch.Tensor, k: int,
+                 cap: int = DEFAULT_CAP, block: int = 2048) -> torch.Tensor:
+    """Mean-KNN distance per point by the grid scan, in the caller's order.
+    Rows with valid=False get meaningless values."""
+    k = min(int(k), MAX_K)
+    order, skeys, spos, svalid, ci_sorted, cell = _sor_grid_bin(pos, valid)
+    md_sorted = _sor_grid_loop(skeys, spos, svalid, ci_sorted, cell, k, cap, block)
+    md = torch.empty_like(md_sorted)
+    md[order] = md_sorted
+    return md
+
+
+def sor_mean_knn_dists(pos: torch.Tensor, k: int = 25, cap: int = DEFAULT_CAP,
+                       block: int = 2048) -> torch.Tensor:
+    """Mean distance to the <= k nearest neighbours of every point [N, 3]
+    (the grid scan), on ``pos``'s device.
+
+    Missing-neighbour rule, shared with ``sor_mask``'s window method: the
+    missing slots fill at the largest distance found, floored at the search
+    reach, so isolated points rank as outliers under both methods."""
+    pos = pos.to(torch.float32)
+    valid = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    return _sor_md_grid(pos, valid, k, cap, block)
+
+
 def _sor_mask_stats(md: torch.Tensor, valid: torch.Tensor, n_valid: int,
                     sigma: float) -> torch.Tensor:
     cnt = torch.tensor(float(n_valid), device=md.device)
@@ -310,15 +461,21 @@ def sor_mask(pos: torch.Tensor, k: int, sigma: float, method: str = "window",
              iters: int | None = None) -> torch.Tensor:
     """Keep-mask: mean_knn_dist < mean + sigma * std (reference gpu_ops.py:259-263).
 
-    ``pos`` is an [N, 3] tensor; the mask comes back on its device.  Settings
-    by sigma, as in the JAX package: sigma >= 3 (the slider's range) takes 1
-    pass, a k-scaled window and 7 bisection steps; tighter sigmas take 2
-    passes, a window of at least 512 and 10 steps.
+    ``pos`` is an [N, 3] tensor; the mask comes back on its device.
+    ``method``: "window" (Morton-window candidates) or "grid" (the exact
+    27-cell grid scan; ``passes``, ``window`` and ``iters`` do not apply).
+    Window settings by sigma, as in the JAX package: sigma >= 3 (the
+    slider's range) takes 1 pass, a k-scaled window and 7 bisection steps;
+    tighter sigmas take 2 passes, a window of at least 512 and 10 steps.
     """
+    if method == "grid":
+        k = min(int(k), MAX_K)
+        n = pos.shape[0]
+        valid = torch.ones(n, dtype=torch.bool, device=pos.device)
+        md = _sor_md_grid(pos.to(torch.float32), valid, k)
+        return _sor_mask_stats(md, valid, n, sigma)
     if method != "window":
-        raise NotImplementedError(
-            f"SOR method={method!r} is not ported yet (ROADMAP queue 1, "
-            "SOR method='grid'); use method='window'")
+        raise ValueError(f"sor_mask: method must be 'window' or 'grid', got {method!r}")
     fast = float(sigma) >= 3.0
     if passes is None:
         passes = 1 if fast else 2

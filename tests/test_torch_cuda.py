@@ -658,3 +658,126 @@ def test_fit_on_card_reduces_loss(card):
     assert fitted.pos.device.type == "cuda"
     assert rz.LAUNCHES["composite_bwd"] == before + 30
     assert losses[-1] < losses[0] * 0.5
+
+
+# ------------------------------------------------- the device-resident path
+
+
+def _device_scene(n=20000, seed=11):
+    """A host cloud: a dense blob, sparse noise inside +-40, SH degree 2."""
+    r = np.random.default_rng(seed)
+    pos = np.concatenate([r.normal(0, 2.0, (n - 300, 3)),
+                          r.uniform(-40, 40, (300, 3))]).astype(np.float32)
+    quat = r.normal(0, 1, (n, 4)).astype(np.float32)
+    rest = np.zeros((n, 3, 15), np.float32)
+    rest[:, :, :8] = r.normal(0, 0.1, (n, 3, 8))
+    return SplatCloud(pos=pos, sh_dc=r.normal(0, 0.5, (n, 3)).astype(np.float32),
+                      sh_rest=rest, opacity=r.normal(1, 2, n).astype(np.float32),
+                      log_scale=r.normal(-4, 0.5, (n, 3)).astype(np.float32), quat=quat,
+                      normal=np.zeros((n, 3), np.float32), active_sh_degree=2)
+
+
+@pytest.mark.parametrize("multi,wide", [(False, False), (True, False), (False, True)])
+def test_density_tensor_path_on_card_equals_cpu(card, multi, wide):
+    from gsconverter_tpu_torch.ops import density
+
+    pos = _device_scene().pos
+    if wide:
+        pos = pos.copy()
+        pos[:5000] += np.float32(3000.0)
+    want = density.density_mask(torch.from_numpy(pos), 1.0, 0.1, keep_multicluster=multi)
+    got = density.density_mask(torch.from_numpy(pos).to(card), 1.0, 0.1,
+                               keep_multicluster=multi)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, torch.from_numpy(
+        density.density_mask(pos, 1.0, 0.1, keep_multicluster=multi)))
+
+
+def test_sor_grid_on_card_matches_cpu(card):
+    pos = torch.from_numpy(_device_scene(8000).pos)
+    want = sor.sor_mean_knn_dists(pos, 25)
+    got = sor.sor_mean_knn_dists(pos.to(card), 25).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    mg = sor.sor_mask(pos.to(card), 25, 3.0, method="grid").cpu()
+    assert (mg == sor.sor_mask(pos, 25, 3.0, method="grid")).float().mean() >= 0.999
+
+
+def test_tensor_filter_chain_on_card_matches_host(card):
+    from gsconverter_tpu_torch.ops import compaction, filters
+
+    c = _device_scene(30000)
+    dev = c.device(card)
+    assert dev.pos.device.type == "cuda"
+    launches = 0
+    for step in (lambda x: filters.crop_by_bbox(x, (-30, -30, -30, 30, 30, 30)),
+                 lambda x: filters.alpha_filter(x, 5),
+                 lambda x: filters.density_filter(x, sensitivity=0.5),
+                 lambda x: filters.remove_flyers(x, intensity=4, device=card)):
+        c = step(c)
+        before = sor.KERNEL_LAUNCHES
+        dev = step(dev)
+        launches += sor.KERNEL_LAUNCHES - before
+        assert dev.pos.device.type == "cuda" and dev.n == c.n
+        np.testing.assert_array_equal(dev.pos.cpu().numpy(), c.pos)
+    assert launches == 1  # the device chain's SOR stage launched K1 once
+    m = torch.zeros(dev.n, dtype=torch.bool, device=card)
+    m[::2] = True
+    out = compaction.compact(dev, m)
+    np.testing.assert_array_equal(out.pos.cpu().numpy(), c.pos[::2])
+
+
+@pytest.mark.parametrize("fmt,kw", [("splat", {}), ("spz", {}), ("compressed_ply", {}),
+                                    ("ksplat", dict(compression_level=0)),
+                                    ("ksplat", dict(compression_level=2)), ("3dgs", {})])
+def test_tensor_writer_on_card_within_a_step_of_host(card, fmt, kw, tmp_path):
+    c = _device_scene(6000)
+    c = c.replace(quat=c.quat / np.linalg.norm(c.quat, axis=1, keepdims=True))
+    h = get_handler(fmt)
+    a, b = str(tmp_path / f"h{h.extension}"), str(tmp_path / f"d{h.extension}")
+    h.write(c, a, device="cpu", **kw)
+    h.write(c.device(card), b, **kw)
+    ca, cb = h.read(a), h.read(b)
+    assert ca.n == cb.n
+    if fmt == "splat":
+        # rows whose metrics tie, or differ by the card's exp ulp, may
+        # take another order: compare the rows in position order
+        ca, cb = (x.select(np.lexsort(x.pos.T)) for x in (ca, cb))
+    # exp, log1p and sigmoid on the card may round an ulp away from numpy's
+    np.testing.assert_array_equal(cb.pos, ca.pos)
+    np.testing.assert_allclose(cb.log_scale, ca.log_scale, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(cb.sh_dc, ca.sh_dc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(cb.quat, ca.quat, rtol=0, atol=1e-6)
+    sig = lambda x: 1 / (1 + np.exp(-x.astype(np.float64)))  # noqa: E731
+    assert np.abs(sig(ca.opacity) - sig(cb.opacity)).max() <= 1 / 255 + 1e-6
+
+
+def test_tensor_sog_on_card_matches_host_fitted_on_card(card, tmp_path):
+    import zipfile
+
+    c = _device_scene(20000)
+    h = get_handler("sog")
+    a, b = str(tmp_path / "h.sog"), str(tmp_path / "d.sog")
+    h.write(c, a, device=card, compression_level=1)
+    launches = dict(km.LAUNCHES)
+    h.write(c.device(card), b, compression_level=1)
+    assert km.LAUNCHES["lloyd"] == launches["lloyd"] + 11
+    za, zb = zipfile.ZipFile(a), zipfile.ZipFile(b)
+    same = [i.filename for i in za.infolist() if za.read(i.filename) == zb.read(i.filename)]
+    # the palette (K2 on the same card and input) and the codebook textures
+    for name in ("shN_centroids.webp", "shN_labels.webp", "scales.webp"):
+        assert name in same, name
+
+
+def test_checkpoint_of_a_card_cloud_and_validation(card, tmp_path):
+    from gsconverter_tpu_torch.utils import checkpoint
+    from gsconverter_tpu_torch.utils.validate import validate_cloud
+
+    c = _device_scene(5000)
+    dev = c.device(card)
+    checkpoint.save(dev, str(tmp_path), "sor")
+    back = checkpoint.load(str(tmp_path), "sor")
+    np.testing.assert_array_equal(back.sh_rest, c.sh_rest)
+    pos = dev.pos.clone()
+    pos[:4] = float("nan")
+    assert validate_cloud(dev.replace(pos=pos)) == validate_cloud(c.replace(pos=pos.cpu().numpy()))

@@ -175,15 +175,12 @@ def test_convert_without_device_needs_a_gpu(scene, tmp_path, monkeypatch):
     assert os.path.getsize(out) == 32 * 5000
 
 
-def test_checkpoint_dir_not_ported(scene, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_convert(scene, str(tmp_path / "o.ply"), "3dgs", device="cpu",
-                      checkpoint_dir=str(tmp_path / "ck"), min_opacity=5)
-
-
 def test_import_loads_no_jax():
     code = ("import sys, gsconverter_tpu_torch, gsconverter_tpu_torch.main, "
-            "gsconverter_tpu_torch.ops.sor, gsconverter_tpu_torch.utils.cuda_build\n"
+            "gsconverter_tpu_torch.ops.sor, gsconverter_tpu_torch.utils.cuda_build, "
+            "gsconverter_tpu_torch.ops.compaction, gsconverter_tpu_torch.ops.density, "
+            "gsconverter_tpu_torch.utils.transfer, gsconverter_tpu_torch.utils.validate, "
+            "gsconverter_tpu_torch.utils.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gsconverter_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

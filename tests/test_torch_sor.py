@@ -181,5 +181,3 @@ def test_sor_mask_keeps_callers_device_and_length():
     m = tsor.sor_mask(pos, 25, 10.5)
     assert m.dtype == torch.bool and m.shape == (2600,)
     assert m.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="grid"):
-        tsor.sor_mask(pos, 25, 10.5, method="grid")
