@@ -60,7 +60,11 @@ Phases (any failure ends the run with a non-zero exit):
      sum(img^2) with respect to opacity, with K5's and K6's launches (one
      each per band); forward, forward+gradient and K5/K6 per band timed
      (median of 5 by CUDA events); the band with the largest budget held
-     against the plain versions with per-tile exit, every splat-level
+     against the plain versions with per-tile exit; K6 a frame against its
+     bound (counted from each band's alphas), ptxas's line for it, the
+     share of the frame's (warp, candidate) pairs in which some pixel sees
+     the candidate (the ones K6 reduces) and the shuffles a pair its sums
+     over pixels take by its source; every splat-level
      gradient against the same render through those plain versions, the
      frame against the plain path (chunk-wide exit) on the card's tensors
      within T_EPS * (max color + max |bg|) + 1e-5 and against the CPU
@@ -158,16 +162,16 @@ FIT_STEPS, FIT_LR = 200, 5e-3  # examples/fit_scene.py
 # the full-size training steps: Adam's first steps move every parameter by
 # about lr, so lr stays well below the scene's splat scale (exp(-5.5))
 TRAIN_LR = 1e-4
-# FP32 instructions a live (candidate, pixel) pair needs, expf counted as 4
-# (its range reduction and scaling; the MUFU op aside).  K5: dx, dy (2),
-# power (10), min (1), expf (4), raw, clamp, zero test (4), weight (2),
-# rgb (3), 1 - a and the block product (2): 28.  K6, with alpha computed
-# once: alpha (21), T_i and w (2), g . color (3), s and its prefix (3),
-# R_i and d_a with its division (7), the live mask (3), d_gauss and
-# d_power (4), the mean and conic terms (15), the color terms (3), d_alpha
-# (1), the block product (2), and one add a field for the sums over the
-# tile's pixels (9): 73.
-K5_PAIR_OPS, K6_PAIR_OPS = 28, 73
+# FP32 instructions a (candidate, pixel) pair needs, expf counted as 4 (its
+# range reduction and scaling; the MUFU op aside).  Every pair a tile walks
+# needs its alpha: dx, dy (2), power (10), min (1), expf (4), raw, clamp,
+# zero test (4): 21, and 1 - a and the block product (2): 23.  Where a != 0
+# a pair needs more, K5: its weight (2) and rgb (3): 5; K6: T_i and w (2),
+# g . color (3), s and its prefix (3), R_i and d_a with its division (7),
+# the live mask (3), d_gauss and d_power (4), the mean and conic terms
+# (15), the color terms (3), d_alpha (1), and one add a field for the sums
+# over the tile's pixels (9): 50.
+WALK_PAIR_OPS, K5_NONZERO_OPS, K6_NONZERO_OPS = 23, 5, 50
 # the main path's other codecs: (label, format, write options)
 MAIN_CODECS = (("ksplat_l0", "ksplat", dict(compression_level=0)),
                ("ksplat_l1", "ksplat", dict(compression_level=1)),
@@ -1453,20 +1457,22 @@ class plain_path:
         return False
 
 
-def composite_bound_ms(kernel, counts, n_done, bm):
+def composite_bound_ms(kernel, counts, n_done, bm, nonzero):
     """Least time for K5's or K6's function on one band: the FP32
-    instructions of its live (candidate, pixel) pairs (sum over tiles of
-    min(count, n_done * BM) * 256) over their issue rate, or its bytes (the
-    live window rows, 36 B each, read once; the per-pixel outputs and saved
+    instructions it needs (WALK_PAIR_OPS for each (candidate, pixel) pair
+    the tiles walk, the sum over tiles of min(count, n_done * BM) * 256,
+    and K5_NONZERO_OPS or K6_NONZERO_OPS more for each of the ``nonzero``
+    pairs with a != 0) over their issue rate, or its bytes (the walked
+    window rows, 36 B each, read once; the per-pixel outputs and saved
     transmittances; K6 also its gradient rows) over the memory rate."""
     c = counts.numel()
     rows = int(torch.minimum(counts.long(), n_done.long() * bm).sum())
     blocks = int(n_done.long().sum())
     if kernel == "K5":
-        ops = rows * 256 * K5_PAIR_OPS
+        ops = rows * 256 * WALK_PAIR_OPS + nonzero * K5_NONZERO_OPS
         nbytes = rows * 36 + c * 256 * 16 + blocks * 256 * 4 + c * 8
     else:
-        ops = rows * 256 * K6_PAIR_OPS
+        ops = rows * 256 * WALK_PAIR_OPS + nonzero * K6_NONZERO_OPS
         nbytes = rows * 72 + c * 256 * 16 + blocks * 256 * 4 + c * 16
     t_ops, t_bytes = ops / FP32_INSTR_RATE, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
@@ -1517,20 +1523,57 @@ def compare_band(rz, fwd_args, grgb):
     return out
 
 
+def alpha_counts(rz, bm, geo, al, origin, n_done):
+    """Over the blocks a band's tiles composited, by the plain version's
+    ``_block_alpha`` on the band's own tensors: the (candidate, pixel) pairs
+    with a != 0, and for each (tile, block, warp) its live candidates, those
+    that some pixel of the warp sees (the ones K6 reduces)."""
+    c_sz, m = al.shape
+    nb = m // bm
+    gx, gy = rz._pixel_grid(origin)
+    geo_b, al_b = geo.reshape(c_sz, nb, bm, rz.GEO), al.reshape(c_sz, nb, bm)
+    nonzero, live = 0, [torch.zeros(0, dtype=torch.long, device=al.device)]
+    for b in range(int(n_done.max()) if c_sz else 0):
+        on = n_done > b
+        blk = geo_b[on, b]
+        a = rz._block_alpha(blk[..., 0:2], blk[..., 2:5], al_b[on, b], gx[on], gy[on])[0]
+        seen = a != 0
+        nonzero += int(seen.sum())
+        warps = seen.reshape(a.shape[0], bm, rz.PIXELS // 32, 32).any(-1)
+        live.append(warps.sum(1).flatten())
+    return nonzero, torch.cat(live)
+
+
+def k6_shuffles(live):
+    """The shuffles K6's warps spend on their sums over pixels, counted from
+    ``csrc/composite.cu``, for blocks in which they see ``live``
+    candidates: 81 a group of 8 while more than 4 are left, then 54 for
+    the last 3-4 or 45 for the last 1-2."""
+    full = (live + 3) // 8
+    rest = live - 8 * full
+    return int((81 * full + 54 * (rest > 2) + 45 * ((rest > 0) & (rest <= 2))).sum())
+
+
 def time_bands(rz, fwd_calls, bwd_calls):
     """Per band: K5 and K6 per launch (median of 5), their plain versions
-    (one call), bounds; K6 is timed on the cotangent the main path gave."""
+    (one call), bounds; K6 is timed on the cotangent the main path gave.
+    Also the band's pairs with a != 0, its (warp, candidate) pairs and
+    those in which the warp sees the candidate, and the shuffles K6's
+    source spends on them."""
     bands = []
     for args in fwd_calls:
         bm, geo, al, origin, counts, bg = args
         k = rz._composite_fwd_kernel(*args)
         bargs = next(b for b in bwd_calls if b[1].shape == geo.shape)
         grgb = bargs[-1]
-        b5, by5, pairs = composite_bound_ms("K5", counts, k[3], bm)
-        b6, by6, _ = composite_bound_ms("K6", counts, k[3], bm)
+        nonzero, live = alpha_counts(rz, bm, geo, al, origin, k[3])
+        b5, by5, pairs = composite_bound_ms("K5", counts, k[3], bm, nonzero)
+        b6, by6, _ = composite_bound_ms("K6", counts, k[3], bm, nonzero)
         saved = (bm, geo, al, origin, bg, k[1], k[2], k[3], grgb)
         bands.append(dict(
-            tiles=counts.numel(), m=geo.shape[1], live_pairs=pairs,
+            tiles=counts.numel(), m=geo.shape[1], walked_pairs=pairs,
+            nonzero_pairs=nonzero, warp_candidate_pairs=live.numel() * bm,
+            warp_candidate_live=int(live.sum()), k6_shuffles=k6_shuffles(live),
             k5_ms=cuda_median_ms(lambda: rz._composite_fwd_kernel(*args)),
             k6_ms=cuda_median_ms(lambda: rz._composite_bwd_kernel(*saved)),
             k5_plain_ms=cuda_median_ms(
@@ -1540,6 +1583,40 @@ def time_bands(rz, fwd_calls, bwd_calls):
                                        warmup=0),
             k5_bound_ms=b5, k5_bound_by=by5, k6_bound_ms=b6, k6_bound_by=by6))
     return bands
+
+
+def ptxas_lines(log_text, kernel):
+    """ptxas's -v lines (registers, shared memory, spills) for the entry
+    function whose name holds ``kernel``."""
+    lines, on = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and ("registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def bench_render(rz, cloud):
+    """Config 4's camera, its budget (auto_budget) and the bench's render
+    settings for ``cloud``."""
+    cam = rz.Camera.look_at(eye=[0, 0, 5.0], target=[0, 0, 0], fov_deg=60.0,
+                            width=RENDER_W, height=RENDER_H)
+    budget = rz.auto_budget(cloud, cam, band_chunk=RENDER_CHUNK)
+    kw = dict(binning="windowed", max_global=budget["max_global"], tile_chunk=RENDER_CHUNK,
+              block_m=RENDER_BM, tile_order=budget["tile_order"],
+              band_plan=budget["band_plan"])
+    return cam, budget, kw
+
+
+def bench_train_step(train, cloud, cam, kw):
+    """Config 4's Adam step, from a perturbed copy of ``cloud`` towards a
+    target image given to each call."""
+    base = cloud.replace(sh_dc=cloud.sh_dc + 0.2, opacity=cloud.opacity - 0.3)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in train.params_of(base).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+    return train.make_train_step(base, cam, opt, params, **kw)
 
 
 def phase_render(smi):
@@ -1553,19 +1630,14 @@ def phase_render(smi):
     t0 = time.perf_counter()
     host = render_bench_scene(RENDER_N)
     cloud = host.to_device(DEVICE)
-    cam = rz.Camera.look_at(eye=[0, 0, 5.0], target=[0, 0, 0], fov_deg=60.0,
-                            width=RENDER_W, height=RENDER_H)
     torch.cuda.synchronize()
     log(f"[render] minted {RENDER_N}-splat scene in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    budget = rz.auto_budget(cloud, cam, band_chunk=RENDER_CHUNK)
+    cam, budget, kw = bench_render(rz, cloud)
     out["auto_budget_s"] = time.perf_counter() - t0
     out["budget"] = {k: v for k, v in budget.items() if k not in ("tile_order", "band_plan")}
     out["band_plan"] = [list(b) for b in budget["band_plan"]]
     log(f"[render] budget on {smi}: {json.dumps(out['budget'])}; bands {out['band_plan']}")
-    kw = dict(binning="windowed", max_global=budget["max_global"], tile_chunk=RENDER_CHUNK,
-              block_m=RENDER_BM, tile_order=budget["tile_order"],
-              band_plan=budget["band_plan"])
     n_bands = len(budget["band_plan"])
 
     # the main path: one forward and the gradient of sum(img^2) w.r.t. opacity
@@ -1619,6 +1691,30 @@ def phase_render(smi):
     for key in ("fwd_profile", "fwd_grad_profile"):
         log(f"[render] {key} on {smi}: {json.dumps(out[key])}")
     log(f"[render] largest band vs plain: {json.dumps(out['band_check'])}")
+    # K6 alone: per band and a frame against its bound, its ptxas line, the
+    # share of (warp, candidate) pairs in which the warp sees the candidate
+    # (the ones K6 reduces), and the shuffles its source spends on them
+    from gsconverter_tpu_torch.utils import cuda_build
+
+    bands = out["bands"]
+    k6_ms = [b["k6_ms"] for b in bands]
+    k6_bound = sum(b["k6_bound_ms"] for b in bands)
+    n_live = sum(b["warp_candidate_live"] for b in bands)
+    n_shfl = sum(b["k6_shuffles"] for b in bands)
+    out["k6"] = dict(
+        per_band_ms=k6_ms, frame_ms=sum(k6_ms), bound_ms=k6_bound,
+        share_of_bound=k6_bound / sum(k6_ms),
+        ptxas=ptxas_lines(cuda_build.BUILD_LOG.get("composite", ""),
+                          "composite_bwd_kernel") or
+        ["not in this process's build log (a cached library)"],
+        nonzero_share=sum(b["nonzero_pairs"] for b in bands)
+        / sum(b["walked_pairs"] for b in bands),
+        warp_candidate_live_share=n_live / sum(b["warp_candidate_pairs"] for b in bands),
+        # counted from the source (k6_shuffles), not measured
+        source_shuffles_per_reduced_pair=n_shfl / max(n_live, 1),
+        source_shuffles_per_walked_pair=n_shfl / sum(b["warp_candidate_pairs"]
+                                                     for b in bands))
+    log(f"[render] K6 on {smi}: {json.dumps(out['k6'])}")
     del spy, big, grgb
 
     # every splat-level gradient, kernels against the plain versions
@@ -1723,11 +1819,7 @@ def phase_render(smi):
         fail(f"the fit demo reached {p1:.2f} dB from {p0:.2f} dB, not +5 dB")
 
     # three timed training steps at full size
-    base = cloud.replace(sh_dc=cloud.sh_dc + 0.2, opacity=cloud.opacity - 0.3)
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in train.params_of(base).items()}
-    opt = torch.optim.Adam(list(params.values()), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
-    step = train.make_train_step(base, cam, opt, params, **kw)
+    step = bench_train_step(train, cloud, cam, kw)
     step_ms, step_loss = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1907,7 +1999,7 @@ def main():
                             "k": main_k2["chunks"] * main_k2["k"]},
     }]
     bands, check = rend["bands"], rend["band_check"]
-    band_shapes = [{"tiles": b["tiles"], "m": b["m"], "live_pairs": b["live_pairs"]}
+    band_shapes = [{k: b[k] for k in ("tiles", "m", "walked_pairs", "nonzero_pairs")}
                    for b in bands]
     composite_src = "gsconverter_tpu_torch/csrc/composite.cu"
     for key, name, replaces, err in (
@@ -1933,6 +2025,8 @@ def main():
             "shape": {"bands": band_shapes, "block_m": RENDER_BM},
         })
     kernels[-2]["band_check"] = check
+    kernels[-1]["ptxas"] = rend["k6"]["ptxas"]
+    kernels[-1]["warp_candidate_live_share"] = rend["k6"]["warp_candidate_live_share"]
     log(f"[render] config 4 on {smi}: " + json.dumps(
         {k: v for k, v in rend.items() if k not in ("bands", "band_check")}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,22 +32,45 @@
 // block sum minus the inclusive prefix, as JAX does: one pass for the sum,
 // one for the rest), d_a = (g . color_i) T_i - R_i / (1 - a_i), masked to
 // the live clamp region, then the chain to alpha, conic and mean, and
-// d_color_i = g w_i.  Each per-candidate sum over the tile's 256 pixels
-// is a warp butterfly (__shfl_xor_sync) and then a sum over the 8 warps
-// in a fixed order: no atomics, so repeat launches are bit-identical.
-// A warp in which no pixel sees candidate i (a = 0 everywhere) skips the
-// shuffles; its share is exactly 0.  K6 writes d_geo [C, M, 8],
-// d_alpha [C, M] for the blocks it walked (the wrapper zeroes the rest)
-// and d_bg partials [C, 3].
+// d_color_i = g w_i.  K6 writes d_geo [C, M, 8], d_alpha [C, M] for the
+// blocks it walked (the wrapper zeroes the rest) and d_bg partials [C, 3].
 //
-// What bounds them: operations.  Each live (candidate, pixel) pair costs
-// K5 about two dozen FP32 instructions and one expf, K6 twice the alpha
-// (two passes) and about 60 more; the bytes (36 a candidate, read once
-// per tile) are small beside that.  This first version is one thread a
-// pixel with candidates staged through shared memory.  Alpha is computed
-// with the plain PyTorch version's roundings and the accurate expf (not
-// __expf), so every alpha, and with it every clamp and exit decision, is
-// the plain version's; the image stays within 2e-5 of it.
+// What bounds them.  K5: FP32 issue, about two dozen instructions and one
+// expf a live (candidate, pixel) pair; the bytes (36 a candidate, read
+// once per tile) are small beside that.  One thread a pixel, candidates
+// staged through shared memory.  Alpha is computed with the plain PyTorch
+// version's roundings and the accurate expf (not __expf), so every alpha,
+// and with it every clamp and exit decision, is the plain version's; the
+// image stays within 2e-5 of it.
+//
+// K6 sums 9 per-pixel terms a candidate over the tile's 256 pixels.  Done
+// as a 5-step __shfl_xor_sync butterfly a term, that is 45 shuffles a
+// (candidate, pixel) pair, and Hopper issues shuffles at 32 lanes a clock
+// an SM, a quarter of its FP32 rate: the shuffle pipe bounded K6, and its
+// second pass recomputed every alpha.  This design:
+//   - pass 1 computes each alpha once and keeps its gauss in dynamic
+//     shared memory ([BM][256] floats, 64 KB at BM = 64), its sign
+//     carrying `power < 0` (a stored -1 means power >= 0, gauss 1): pass 2
+//     derives raw = al * gauss, a, dx and dy bit-equal to alpha_at's.
+//     Pass 1 also ballots, a candidate at a time, the candidates some
+//     pixel of each warp sees (the warp's live mask);
+//   - pass 2 walks only the warp's live candidates, in order (elsewhere
+//     every pixel has a = 0, so the T factor and the prefix do not move),
+//     8 at a time.  Each lane holds its pixel's 9 terms of the group's
+//     candidates; halving steps of a reduce-scatter (offsets 16, 8, 4)
+//     leave lane l with candidate l / 4's terms summed over 8 lanes, and
+//     a butterfly (2, 1) finishes the warp: 81 shuffles a group of 8, 10.1
+//     a reduced pair, against 45.  The last 3-4 go as a group of 4 (54
+//     shuffles), the last 1-2 as one of 2 (45), so no candidate costs more
+//     than the butterfly did.  The lanes that share a candidate write its
+//     9 sums over cache entries the warp has read, so a CTA needs only the
+//     64 KB cache and 2.4 KB more: three CTAs (24 warps) fit an SM, at
+//     most 80 registers a thread;
+//   - the warps that see a candidate add their shares in warp order, the
+//     others add nothing: no atomics, so repeat launches are bit-identical.
+// What is left is FP32 issue: pass 1's alpha for every pair (about 21
+// instructions and one expf), and pass 2's gradient chain with its
+// division where a warp sees the candidate.
 
 #include <cuda_runtime.h>
 
@@ -88,7 +111,7 @@ __device__ __forceinline__ void stage(Cands& s, const float* __restrict__ geo,
 }
 
 struct Alpha {
-  float a, raw, gauss, power, dx, dy;
+  float a, gauss, power;
 };
 
 // Every operation rounded on its own, in the plain version's order: an
@@ -97,15 +120,14 @@ struct Alpha {
 // With the same roundings and the same expf, a is bit-identical.
 __device__ __forceinline__ Alpha alpha_at(const Cands& s, int j, float gx, float gy) {
   Alpha v;
-  v.dx = __fsub_rn(gx, s.mx[j]);
-  v.dy = __fsub_rn(gy, s.my[j]);
-  const float t1 = __fmul_rn(__fmul_rn(s.ca[j], v.dx), v.dx);
-  const float t2 = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.cb[j]), v.dx), v.dy);
-  const float t3 = __fmul_rn(__fmul_rn(s.cc[j], v.dy), v.dy);
+  const float dx = __fsub_rn(gx, s.mx[j]);
+  const float dy = __fsub_rn(gy, s.my[j]);
+  const float t1 = __fmul_rn(__fmul_rn(s.ca[j], dx), dx);
+  const float t2 = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.cb[j]), dx), dy);
+  const float t3 = __fmul_rn(__fmul_rn(s.cc[j], dy), dy);
   v.power = __fmul_rn(-0.5f, __fadd_rn(__fadd_rn(t1, t2), t3));
   v.gauss = expf(fminf(v.power, 0.f));
-  v.raw = __fmul_rn(s.al[j], v.gauss);
-  const float a = fminf(v.raw, kAlphaMax);
+  const float a = fminf(__fmul_rn(s.al[j], v.gauss), kAlphaMax);
   v.a = a < kAlphaMin ? 0.f : a;
   return v;
 }
@@ -159,15 +181,136 @@ composite_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ al
   if (p == 0) n_done[c] = b;
 }
 
-__global__ void __launch_bounds__(kPixels)
+// Pixel terms of candidate j for K6's pass 2, from pass 1's cached gauss
+// `st` (negative: power >= 0 and gauss 1): q gets the 9 terms (mean x, y;
+// conic a, b, c; color r, g, b; alpha), all 0 where the pixel does not see
+// j, and tb (the block's running T factor) and P (the inclusive prefix of
+// s) move past j.  raw = al * gauss and the clamp are alpha_at's, so a is
+// bit-equal to pass 1's.
+__device__ __forceinline__ void pair_terms(const Cands& s, int j, float st, float gx,
+                                           float gy, float g0, float g1, float g2,
+                                           float ts, float R, float S, float& tb,
+                                           float& P, float (&q)[kGrads]) {
+#pragma unroll
+  for (int k = 0; k < kGrads; ++k) q[k] = 0.f;
+  const float gauss = fabsf(st);
+  const float raw = __fmul_rn(s.al[j], gauss);
+  const float am = fminf(raw, kAlphaMax);
+  const float a = am < kAlphaMin ? 0.f : am;
+  if (a == 0.f) return;  // w = 0, not live: every term is 0, tb and P stay
+  const float dx = __fsub_rn(gx, s.mx[j]);
+  const float dy = __fsub_rn(gy, s.my[j]);
+  const float Ti = ts * tb;
+  const float w = a * Ti;
+  const float cgj = g0 * s.r[j] + g1 * s.g[j] + g2 * s.b[j];
+  P += cgj * w;
+  const float Ri = R + (S - P);
+  const float d_a = cgj * Ti - Ri / (1.f - a);
+  const bool live = a >= kAlphaMin && raw < kAlphaMax;
+  const float d_raw = live ? d_a : 0.f;
+  const float d_gauss = d_raw * s.al[j];
+  const float d_power = st >= 0.f ? d_gauss * gauss : 0.f;  // power < 0
+  q[0] = d_power * (s.ca[j] * dx + s.cb[j] * dy);
+  q[1] = d_power * (s.cb[j] * dx + s.cc[j] * dy);
+  q[2] = d_power * -0.5f * dx * dx;
+  q[3] = d_power * -1.0f * dx * dy;
+  q[4] = d_power * -0.5f * dy * dy;
+  q[5] = g0 * w;
+  q[6] = g1 * w;
+  q[7] = g2 * w;
+  q[8] = d_raw * gauss;
+  tb *= 1.f - a;
+}
+
+// One halving step of the reduce-scatter: the lanes with `upper` keep `hi`
+// and send `lo`, the others keep `lo` and send `hi`, and each adds the
+// partner's copy of the half it keeps.  Both partners add the same two
+// values, so they hold the same bits.
+__device__ __forceinline__ float halve(float lo, float hi, bool upper, int offset) {
+  return (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, offset);
+}
+
+// Pass 2 of K6 for the next G (8, 4 or 2) candidates of `live`, the warp's
+// candidates that some pixel of the warp sees, in order (taken off
+// `live`): their terms, summed over the warp's 32 pixels, go to the first
+// 9 of the warp's 32 cache entries of each candidate j, which its pixels
+// have read by then (gauss_of[j][32 warp + k], k < 9).  Slot g holds the g-th candidate.  Slots 0 .. G/2-1 stay in v; slots
+// G/2 .. G-1 are folded in as they come by the first halving step
+// (offset 16).  The other log2(G) - 1 halving steps (offsets 8, then 4 for
+// G = 8) leave lane l with slot l / (32 / G) summed over G lanes, and a
+// butterfly over the remaining 32 / G lanes finishes the warp.  Shuffles:
+// 9 ((G - 1) + log2(32 / G)) a call: 81 for G = 8, 54 for G = 4 and 45
+// for G = 2 (one butterfly's worth, for one or two candidates).  Empty
+// slots hold 0.  The 32 / G lanes of a slot write its 9 sums between them.
+template <int G>
+__device__ __forceinline__ void reduce_group(float* gauss_of, const Cands& s,
+                                             unsigned long long& live, int p, int lane,
+                                             float gx, float gy, float g0, float g1, float g2,
+                                             float ts, float R, float S, float& tb, float& P) {
+  constexpr int kSpan = 32 / G;  // lanes that end with one slot
+  float v[G / 2][kGrads];
+  float q[kGrads];
+  int js[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    js[g] = -1;
+    if (live) {  // warp-uniform
+      const int j = __ffsll(static_cast<long long>(live)) - 1;
+      live &= live - 1;
+      js[g] = j;
+      pair_terms(s, j, gauss_of[j * kPixels + p], gx, gy, g0, g1, g2, ts, R, S, tb, P, q);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kGrads; ++k) q[k] = 0.f;
+    }
+    if (g < G / 2) {
+#pragma unroll
+      for (int k = 0; k < kGrads; ++k) v[g][k] = q[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < kGrads; ++k)
+        v[g - G / 2][k] = halve(v[g - G / 2][k], q[k], lane & 16, 16);
+    }
+  }
+#pragma unroll
+  for (int h = G / 4; h >= 1; h /= 2) {
+    const int off = 32 * h / G;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+#pragma unroll
+      for (int k = 0; k < kGrads; ++k) v[i][k] = halve(v[i][k], v[i + h][k], lane & off, off);
+    }
+  }
+#pragma unroll
+  for (int off = kSpan / 2; off >= 1; off /= 2) {
+#pragma unroll
+    for (int k = 0; k < kGrads; ++k) v[0][k] += __shfl_xor_sync(kFull, v[0][k], off);
+  }
+  const int slot = lane / kSpan;
+  int jq = -1;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    if (g == slot) jq = js[g];
+  // the warp's cache entries of candidate jq are read: its sums go there
+  __syncwarp();
+  if (jq >= 0) {
+    float* red = gauss_of + jq * kPixels + (p & ~31);
+#pragma unroll
+    for (int k = 0; k < kGrads; ++k)
+      if (k % kSpan == lane % kSpan) red[k] = v[0][k];
+  }
+}
+
+__global__ void __launch_bounds__(kPixels, 3)
 composite_bwd_kernel(const float* __restrict__ geo, const float* __restrict__ alpha,
                      const float* __restrict__ origin, const float* __restrict__ bg,
                      const float* __restrict__ grgb, const float* __restrict__ t_starts,
                      const float* __restrict__ t_final, const int* __restrict__ n_done,
                      float* __restrict__ d_geo, float* __restrict__ d_alpha,
                      float* __restrict__ d_bg, int C, int M, int bm) {
+  extern __shared__ float gauss_of[];  // [bm][256]: pass 1's gauss, signed
   __shared__ Cands s;
-  __shared__ float red[kWarps][kMaxBm][kGrads];
+  __shared__ unsigned long long warp_live[kWarps];  // bit j: the warp sees j
   const int c = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
@@ -179,84 +322,67 @@ composite_bwd_kernel(const float* __restrict__ geo, const float* __restrict__ al
   const float tf = t_final[px];
   const size_t win = static_cast<size_t>(c) * M;
 
-  // d_bg partial of this tile: sum over pixels of g * t_final
+  // d_bg partial of this tile: sum over pixels of g * t_final (the warps'
+  // shares in the cache, before pass 1 first writes it)
   {
     const float q0 = warp_sum(g0 * tf), q1 = warp_sum(g1 * tf), q2 = warp_sum(g2 * tf);
     if (lane == 0) {
-      red[warp][0][0] = q0;
-      red[warp][0][1] = q1;
-      red[warp][0][2] = q2;
+      gauss_of[p + 0] = q0;
+      gauss_of[p + 1] = q1;
+      gauss_of[p + 2] = q2;
     }
     __syncthreads();
     if (p < 3) {
       float acc = 0.f;
-      for (int w = 0; w < kWarps; ++w) acc += red[w][0][p];
+      for (int w = 0; w < kWarps; ++w) acc += gauss_of[32 * w + p];
       d_bg[static_cast<size_t>(c) * 3 + p] = acc;
     }
   }
 
   float R = (g0 * bg[0] + g1 * bg[1] + g2 * bg[2]) * tf;
   for (int b = n_done[c] - 1; b >= 0; --b) {
-    __syncthreads();  // the last block's reads of s and red are done
+    __syncthreads();  // the last block's reads of s, the cache and warp_live are done
     const size_t off = win + static_cast<size_t>(b) * bm;
     stage(s, geo + off * kGeo, alpha + off, bm, p);
     __syncthreads();
     const float ts = t_starts[(static_cast<size_t>(b) * C + c) * kPixels + p];
 
-    // pass 1: the block's sum S of s_i
+    // pass 1: every alpha of the block, once: the block's sum S of s_i, the
+    // cached gauss, and the candidates some pixel of the warp sees
     float tb = 1.f, S = 0.f;
+    unsigned long long live = 0;
+#pragma unroll 4
     for (int j = 0; j < bm; ++j) {
       const Alpha v = alpha_at(s, j, gx, gy);
       const float w = v.a * (ts * tb);
       S += (g0 * s.r[j] + g1 * s.g[j] + g2 * s.b[j]) * w;
       tb *= 1.f - v.a;
+      gauss_of[j * kPixels + p] = v.power < 0.f ? v.gauss : -1.f;
+      if (__ballot_sync(kFull, v.a != 0.f)) live |= 1ull << j;
     }
-    // pass 2: per-candidate gradients, R_i = R + S - prefix_i
+    if (lane == 0) warp_live[warp] = live;
+
+    // pass 2: R_i = R + S - prefix_i over the warp's live candidates only
+    // (where every pixel has a = 0, tb and the prefix do not move), 8 at a
+    // time, then the last 3-4 as a group of 4 or the last 1-2 as one of 2
     tb = 1.f;
     float P = 0.f;
-    for (int j = 0; j < bm; ++j) {
-      const Alpha v = alpha_at(s, j, gx, gy);
-      const float Ti = ts * tb;
-      const float w = v.a * Ti;
-      const float cgj = g0 * s.r[j] + g1 * s.g[j] + g2 * s.b[j];
-      P += cgj * w;
-      const float Ri = R + (S - P);
-      const float d_a = cgj * Ti - Ri / (1.f - v.a);
-      const bool live = v.a >= kAlphaMin && v.raw < kAlphaMax;
-      const float d_raw = live ? d_a : 0.f;
-      const float d_gauss = d_raw * s.al[j];
-      const float d_power = v.power < 0.f ? d_gauss * v.gauss : 0.f;
-      float q[kGrads];
-      q[0] = d_power * (s.ca[j] * v.dx + s.cb[j] * v.dy);
-      q[1] = d_power * (s.cb[j] * v.dx + s.cc[j] * v.dy);
-      q[2] = d_power * -0.5f * v.dx * v.dx;
-      q[3] = d_power * -1.0f * v.dx * v.dy;
-      q[4] = d_power * -0.5f * v.dy * v.dy;
-      q[5] = g0 * w;
-      q[6] = g1 * w;
-      q[7] = g2 * w;
-      q[8] = d_raw * v.gauss;
-      tb *= 1.f - v.a;
-      if (__any_sync(kFull, v.a != 0.f)) {
-#pragma unroll
-        for (int k = 0; k < kGrads; ++k) q[k] = warp_sum(q[k]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kGrads; ++k) q[k] = 0.f;
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kGrads; ++k) red[warp][j][k] = q[k];
-      }
+    while (__popcll(live) > 4)
+      reduce_group<8>(gauss_of, s, live, p, lane, gx, gy, g0, g1, g2, ts, R, S, tb, P);
+    if (__popcll(live) > 2) {
+      reduce_group<4>(gauss_of, s, live, p, lane, gx, gy, g0, g1, g2, ts, R, S, tb, P);
+    } else if (live) {
+      reduce_group<2>(gauss_of, s, live, p, lane, gx, gy, g0, g1, g2, ts, R, S, tb, P);
     }
     R += S;
     __syncthreads();
-    // the 8 warps' shares, summed in warp order
+    // the shares of the warps that see each candidate, summed in warp order
     for (int t = p; t < bm * kGrads; t += kPixels) {
       const int j = t / kGrads;
       const int k = t - j * kGrads;
       float acc = 0.f;
-      for (int w = 0; w < kWarps; ++w) acc += red[w][j][k];
+      for (int w = 0; w < kWarps; ++w)
+        if ((warp_live[w] >> j) & 1ull) acc += gauss_of[j * kPixels + 32 * w + k];
       const size_t row = off + j;
       if (k < kGeo) {
         d_geo[row * kGeo + k] = acc;
@@ -290,7 +416,10 @@ extern "C" int composite_fwd(const float* geo, const float* alpha, const float* 
 
 // K6.  The forward's inputs and saved outputs, grgb [C,256,3]; out:
 // d_geo [C,M,8] and d_alpha [C,M] (zeroed by the caller; blocks at or past
-// a tile's n_done stay 0), d_bg [C,3] per-tile partials.
+// a tile's n_done stay 0), d_bg [C,3] per-tile partials.  Takes bm * 1 KB
+// of dynamic shared memory; returns the error of raising its limit (at the
+// first call, and the same on every later one), else cudaGetLastError()
+// after the launch.
 extern "C" int composite_bwd(const float* geo, const float* alpha, const float* origin,
                              const float* bg, const float* grgb, const float* t_starts,
                              const float* t_final, const int* n_done, float* d_geo,
@@ -298,7 +427,22 @@ extern "C" int composite_bwd(const float* geo, const float* alpha, const float* 
                              void* stream) {
   if (bad_shape(C, M, bm)) return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
-  composite_bwd_kernel<<<C, kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
+  // pass 1's gauss cache lies above the 48 KB a launch gets by default;
+  // both attributes hold for the process, so they are set at the first call
+  static const cudaError_t attr_err = [] {
+    const int cache_bytes = kMaxBm * kPixels * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(
+        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cache_bytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(composite_bwd_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    return err;
+  }();
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
+  composite_bwd_kernel<<<C, kPixels, static_cast<size_t>(bm) * kPixels * sizeof(float),
+                         static_cast<cudaStream_t>(stream)>>>(
       geo, alpha, origin, bg, grgb, t_starts, t_final, n_done, d_geo, d_alpha, d_bg, C,
       M, bm);
   return static_cast<int>(cudaGetLastError());

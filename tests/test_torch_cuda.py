@@ -20,6 +20,7 @@ from gsconverter_tpu_torch.ops import kmeans as km
 from gsconverter_tpu_torch.ops import sor
 from gsconverter_tpu_torch.ops.padding import PAD_POS, pad_rows
 from gsconverter_tpu_torch.render import rasterizer as rz
+from torch_port_helpers import clamp_edge_windows  # tests/ is on the path
 
 pytestmark = pytest.mark.cuda
 
@@ -472,25 +473,38 @@ def test_sog_written_twice_on_card_is_byte_identical(card, tmp_path):
 # ------------------------------------------------- K5 / K6: tile compositing
 
 
-def _tile_windows(device, c_sz, budget, seed=0):
-    """Synthetic per-tile candidate windows [C, budget]: pixel-scale
-    splats around each tile, plus special tiles: 0 empty, 1 full, 2
-    saturating after three candidates (four wide splats at alpha 0.99 in front), 3
-    fully transparent (every alpha below 1/255), 4 a near-camera giant (sigma
-    of 500 px) in front.  Invalid slots (j >= count) carry alpha 0."""
+# the windows' splats by kind: (mean offset range in the tile, sigma range
+# in px, alpha range).  "mixed": pixel-scale splats around each tile;
+# "dense": every splat covers the whole tile faintly, so every warp of K6
+# reduces every candidate (full groups of 8); "sparse": sigma under 0.25 px,
+# so a splat covers under two pixel rows (one warp's), most warps skip most
+# candidates and reduce the rest in short groups.
+WINDOW_KINDS = {"mixed": ((-8, 24), (0.7, 6.0), (0.01, 0.9)),
+                "dense": ((4, 12), (40.0, 80.0), (0.005, 0.05)),
+                "sparse": ((0, 16), (0.15, 0.25), (0.05, 0.9))}
+
+
+def _tile_windows(device, c_sz, budget, seed=0, kind="mixed"):
+    """Synthetic per-tile candidate windows [C, budget] of splats of the
+    given ``kind`` (``WINDOW_KINDS``), plus special tiles: 0 empty, 1 full,
+    2 saturating after three candidates (four wide splats at alpha 0.99 in
+    front), 3 fully transparent (every alpha below 1/255), 4 a near-camera
+    giant (sigma of 500 px) in front.  Invalid slots (j >= count) carry
+    alpha 0."""
+    (m_lo, m_hi), (s_lo, s_hi), (a_lo, a_hi) = WINDOW_KINDS[kind]
     r = np.random.default_rng(seed)
     counts = r.integers(1, budget + 1, c_sz)
     counts[0], counts[1] = 0, budget
     tix = np.arange(c_sz)
     origin = np.stack([(tix % 32) * 16.0, (tix // 32) * 16.0], 1)
-    mean = origin[:, None, :] + r.uniform(-8, 24, (c_sz, budget, 2))
-    sig = r.uniform(0.7, 6.0, (c_sz, budget, 2))
+    mean = origin[:, None, :] + r.uniform(m_lo, m_hi, (c_sz, budget, 2))
+    sig = r.uniform(s_lo, s_hi, (c_sz, budget, 2))
     rho = r.uniform(-0.6, 0.6, (c_sz, budget))
     det = (sig[..., 0] * sig[..., 1]) ** 2 * (1 - rho ** 2)
     conic = np.stack([sig[..., 1] ** 2 / det, -rho * sig[..., 0] * sig[..., 1] / det,
                       sig[..., 0] ** 2 / det], -1)
     color = r.uniform(0, 1, (c_sz, budget, 3))
-    alpha = r.uniform(0.01, 0.9, (c_sz, budget))
+    alpha = r.uniform(a_lo, a_hi, (c_sz, budget))
     mean[2, :4] = origin[2] + 8.0
     conic[2, :4] = [1e-4, 0.0, 1e-4]
     alpha[2, :4] = 0.99
@@ -509,11 +523,23 @@ def _field_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("budget,bm", [(32, 32), (64, 32), (256, 64), (1024, 64),
-                                       (1024, 32), (96, 48), (40, 1)])
-def test_composite_kernels_match_plain_version(card, budget, bm):
+# (budget, bm, window kind); K6 sums a warp's live candidates 8 at a time,
+# so bm 1, 5 and 45 (not multiples of 8) leave a partial last group
+COMPOSITE_CASES = [(32, 32, "mixed"), (64, 32, "mixed"), (256, 64, "mixed"),
+                   (1024, 64, "mixed"), (1024, 32, "mixed"), (96, 48, "mixed"),
+                   (40, 1, "mixed"), (1024, 64, "dense"), (240, 48, "dense"),
+                   (1024, 64, "sparse"), (90, 45, "sparse"), (45, 5, "mixed"),
+                   (40, 5, "dense"), (48, 48, "sparse")]
+
+
+@pytest.mark.parametrize("budget,bm,kind", [
+    pytest.param(*case, id=f"{case[0]}-{case[1]}" + ("" if case[2] == "mixed"
+                                                     else f"-{case[2]}"))
+    for case in COMPOSITE_CASES])
+def test_composite_kernels_match_plain_version(card, budget, bm, kind):
     c_sz = 96
-    geo, alpha, origin, counts = _tile_windows(card, c_sz, budget, seed=budget + bm)
+    geo, alpha, origin, counts = _tile_windows(card, c_sz, budget, seed=budget + bm,
+                                               kind=kind)
     bg = torch.tensor([0.25, 0.5, 1.0], device=card)
     before = dict(rz.LAUNCHES)
     fk = rz._composite_fwd_kernel(bm, geo, alpha, origin, counts, bg)
@@ -552,6 +578,33 @@ def test_composite_kernels_match_plain_version(card, budget, bm):
     # blocks a tile never composited have zero gradients
     past = torch.arange(geo.shape[1], device=card)[None, :] >= (nd_k[:, None] * bm)
     assert not bool(dk[1][past].any()) and not bool(dk[0][past].any())
+
+
+def test_composite_bwd_keeps_the_clamp_edges(card):
+    """K6 against its plain version on the windows of
+    ``torch_port_helpers.clamp_edge_windows``: power in (-3e-8, 0) where
+    gauss rounds to 1, raw exactly 0.99, a exactly 1/255.  K6 rebuilds each
+    alpha from a cached gauss whose sign carries power < 0."""
+    geo, alpha, origin, counts = (torch.from_numpy(x).to(card) for x in clamp_edge_windows())
+    bg = torch.tensor([0.2, 0.5, 0.9], device=card)
+    grgb = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (3, 256, 3)).astype(np.float32)).to(card)
+    for bm in (4, 8, 16):
+        fk = rz._composite_fwd_kernel(bm, geo, alpha, origin, counts, bg)
+        dk = rz._composite_bwd_kernel(bm, geo, alpha, origin, bg, *fk[1:], grgb)
+        torch.cuda.synchronize()
+        fp = rz._composite_fwd_ref(bm, geo, alpha, origin, counts, bg, per_tile=True)
+        assert torch.equal(fk[3], fp[3])
+        assert float((fk[0] - fp[0]).abs().max()) <= 2e-5
+        dp = rz._composite_bwd_ref(bm, geo, alpha, origin, bg, *fk[1:], grgb)
+        for sl in (slice(0, 2), slice(2, 5), slice(5, 8)):
+            assert _field_err(dk[0][..., sl], dp[0][..., sl]) <= 1e-4, (bm, sl)
+        assert _field_err(dk[1], dp[1]) <= 1e-4, bm
+        assert _field_err(dk[2].sum(0), dp[2]) <= 1e-4, bm
+        # the edge splats' own rows
+        for got, want in ((dk[0][0, 5, 0], dp[0][0, 5, 0]), (dk[1][1, 6], dp[1][1, 6]),
+                          (dk[1][2, 7], dp[1][2, 7])):
+            assert float(want) != 0.0 and _field_err(got, want) <= 1e-4, bm
 
 
 def test_composite_kernels_repeat_bit_identical(card):

@@ -23,7 +23,7 @@ from gsconverter_tpu_torch.render.project import project_gaussians as t_project
 from gsconverter_tpu_torch.render.project import quat_to_rotmat as t_rotmat
 from tests.conftest import make_cloud
 from tests.test_render import scene, structured_scene
-from tests.torch_port_helpers import to_port, to_port_camera
+from tests.torch_port_helpers import clamp_edge_windows, to_port, to_port_camera
 
 NAMES = ("pos", "opacity", "sh_dc", "sh_rest", "log_scale", "quat")
 
@@ -278,6 +278,45 @@ def test_composite_gradcheck_f64():
             fn, (geo.clone().requires_grad_(True), alpha.clone().requires_grad_(True),
                  bg.clone().requires_grad_(True)), eps=1e-6, atol=1e-6, rtol=1e-4,
             fast_mode=True)  # random projections of the 1,536 outputs
+
+
+@pytest.mark.parametrize("bm", [4, 8, 16])
+def test_composite_bwd_keeps_the_clamp_edges_as_jax(bm):
+    """The plain backward against JAX's ``_composite_bwd`` on windows whose
+    pairs sit on the edges a cached alpha must keep: power in (-3e-8, 0)
+    (gauss rounds to 1, d_power is not 0), raw exactly 0.99 (not live) and
+    a exactly 1/255 (live)."""
+    geo, alpha, origin, counts = clamp_edge_windows()
+    tg, ta, to = t(geo), t(alpha), t(origin)
+    gx, gy = tr._pixel_grid(to)
+    a, raw, gauss, power, _, _ = tr._block_alpha(tg[..., 0:2], tg[..., 2:5], ta, gx, gy)
+    assert bool(((power < 0) & (power > -3e-8) & (gauss == 1.0)).any())
+    assert bool((raw == np.float32(tr.ALPHA_MAX)).any())
+    assert bool((a == np.float32(tr.ALPHA_MIN)).any())
+    bg = np.array([0.2, 0.5, 0.9], np.float32)
+    grgb = np.random.default_rng(4).uniform(-1, 1, (3, tr.PIXELS, 3)).astype(np.float32)
+    jm, jc, jcol, ja = (jnp.asarray(x) for x in (geo[..., 0:2], geo[..., 2:5],
+                                                  geo[..., 5:8], alpha))
+    jgx, jgy = jnp.asarray(gx.numpy()), jnp.asarray(gy.numpy())
+    n_valid = jnp.float32(counts.max())
+    rgb_j, ts_j, tf_j, nd_j = jr._composite_fwd_impl(bm, jm, jc, jcol, ja, jgx, jgy,
+                                                     jnp.asarray(bg), n_valid)
+    gj = jr._composite_bwd(bm, (jm, jc, jcol, ja, jgx, jgy, jnp.asarray(bg), ts_j, tf_j,
+                                nd_j), jnp.asarray(grgb))
+    rgb_t, ts_t, tf_t, nd_t = tr._composite_fwd_ref(bm, tg, ta, to, t(counts), t(bg),
+                                                    per_tile=False)
+    assert rel_err(rgb_t.numpy(), rgb_j) <= 1e-5
+    assert int(nd_t.max()) == int(nd_j)
+    d_geo, d_al, d_bg = tr._composite_bwd_ref(bm, tg, ta, to, t(bg), ts_t, tf_t, nd_t,
+                                              t(grgb))
+    for got, want in ((d_geo[..., 0:2], gj[0]), (d_geo[..., 2:5], gj[1]),
+                      (d_geo[..., 5:8], gj[2]), (d_al, gj[3]), (d_bg, gj[6])):
+        assert rel_err(got.numpy(), want) <= 1e-4
+    # the edge splats' own rows: tile 0's mean x (all from the pixel where
+    # power is in (-3e-8, 0)), tiles 1-2's alpha
+    for got, want in ((d_geo[0, 5, 0], gj[0][0, 5, 0]), (d_al[1, 6], gj[3][1, 6]),
+                      (d_al[2, 7], gj[3][2, 7])):
+        assert float(want) != 0.0 and rel_err(got.numpy(), want) <= 1e-4
 
 
 def test_per_tile_exit_equals_chunks_of_one_and_bounds_the_chunk_exit():

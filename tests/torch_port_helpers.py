@@ -124,3 +124,38 @@ def to_port_camera(jax_cam):
     return Camera.from_numpy(np.asarray(jax_cam.world_to_cam), np.asarray(jax_cam.fx),
                              np.asarray(jax_cam.fy), np.asarray(jax_cam.cx),
                              np.asarray(jax_cam.cy), jax_cam.width, jax_cam.height)
+
+
+def clamp_edge_windows():
+    """Compositing windows [C=3, M=16] (numpy f32: geo [C, M, 8], alpha
+    [C, M], origin [C, 2], counts [C] int32) whose pairs sit on the edges
+    the backward must keep:
+      tile 0: a splat 2^-20 px off a pixel center under conic 8192, so
+        power = -2^-28 lies in (-3e-8, 0): gauss rounds to 1, yet
+        d_power = d_gauss * gauss is not 0;
+      tile 1: alpha 0.99 centered on a pixel: raw is exactly 0.99 there
+        (not live), below it on its neighbours;
+      tile 2: alpha f32(1/255) centered on a pixel: a is exactly 1/255
+        there (live), 0 on its neighbours.
+    Every tile also holds ordinary splats before and after its edge splat,
+    all origins at 0 (pixel centers 0.5 ... 15.5)."""
+    r = np.random.default_rng(13)
+    c_sz, m = 3, 16
+    mean = r.uniform(0.0, 16.0, (c_sz, m, 2))
+    sig = r.uniform(1.0, 4.0, (c_sz, m))
+    conic = np.stack([1 / sig ** 2, np.zeros_like(sig), 1 / sig ** 2], -1)
+    color = r.uniform(0, 1, (c_sz, m, 3))
+    alpha = r.uniform(0.05, 0.5, (c_sz, m))
+    geo = np.concatenate([mean, conic, color], -1).astype(np.float32)
+    alpha = alpha.astype(np.float32)
+    center = np.float32(8.5)
+    geo[0, 5, 0:2] = [center - np.float32(2.0 ** -20), center]
+    geo[0, 5, 2:5] = [8192.0, 0.0, 8192.0]
+    alpha[0, 5] = 0.5
+    geo[1, 6, 0:5] = [center, center, 0.5, 0.0, 0.5]
+    alpha[1, 6] = np.float32(0.99)
+    geo[2, 7, 0:5] = [center, center, 0.5, 0.0, 0.5]
+    alpha[2, 7] = np.float32(1.0 / 255.0)
+    origin = np.zeros((c_sz, 2), np.float32)
+    counts = np.full(c_sz, m, np.int32)
+    return geo, alpha, origin, counts
