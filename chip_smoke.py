@@ -60,13 +60,13 @@ Phases (any failure ends the run with a non-zero exit):
      sum(img^2) with respect to opacity, with K5's and K6's launches (one
      each per band); forward, forward+gradient and K5/K6 per band timed
      (median of 5 by CUDA events); the band with the largest budget held
-     against the plain versions with per-tile exit; K6 a frame against its
-     bound (counted from each band's alphas), ptxas's line for it, the
-     share of the frame's (warp, candidate) pairs in which some pixel sees
-     the candidate (the ones K6 reduces) and the shuffles a pair its sums
-     over pixels take by its source; every splat-level
-     gradient against the same render through those plain versions, the
-     frame against the plain path (chunk-wide exit) on the card's tensors
+     against the plain versions with per-tile exit; K5 and K6 a frame
+     against their bounds (counted from each band's alphas), ptxas's lines
+     for them; for K6 the share of the frame's (warp, candidate) pairs in
+     which some pixel sees the candidate (the ones K6 reduces) and the
+     shuffles a pair its sums over pixels take by its source; every
+     splat-level gradient against the same render through those plain
+     versions, the frame against the plain path (chunk-wide exit) on the card's tensors
      within T_EPS * (max color + max |bg|) + 1e-5 and against the CPU
      plain path by PSNR (>= 60 dB); the 64 x 64 windowed-vs-exact
      crop at full N (>= 35 dB); the scene's .spz round trip (> 30 dB);
@@ -162,16 +162,24 @@ FIT_STEPS, FIT_LR = 200, 5e-3  # examples/fit_scene.py
 # the full-size training steps: Adam's first steps move every parameter by
 # about lr, so lr stays well below the scene's splat scale (exp(-5.5))
 TRAIN_LR = 1e-4
-# FP32 instructions a (candidate, pixel) pair needs, expf counted as 4 (its
-# range reduction and scaling; the MUFU op aside).  Every pair a tile walks
-# needs its alpha: dx, dy (2), power (10), min (1), expf (4), raw, clamp,
-# zero test (4): 21, and 1 - a and the block product (2): 23.  Where a != 0
-# a pair needs more, K5: its weight (2) and rgb (3): 5; K6: T_i and w (2),
+# FP32 instructions K5's and K6's function needs, expf counted as 4 (its
+# range reduction and scaling; the MUFU op aside), with each term that
+# depends only on a pixel's column or only on its row formed once for that
+# column or row of the tile.  Every (candidate, pixel) pair a tile walks
+# needs t2 = ((2 cb) dx) dy (1), the two adds and the -0.5 of power (3),
+# min (1), expf (4), raw, clamp, zero test (4), and 1 - a and the block
+# product (2): 15.  A walked candidate also needs, for each of the tile's
+# 16 columns, dx, (ca dx) dx and (2 cb) dx: 4; for each of its 16 rows, dy
+# and (cc dy) dy: 3; and 2 cb once: 1.  So a walked candidate costs a
+# tile 256 * 15 + 16 * 4 + 16 * 3 + 1 = 3953 instructions, 15.44 a pair
+# (23 a pair where every term is formed for every pixel).  Where a != 0 a
+# pair needs more, K5: its weight (2) and rgb (3): 5; K6: T_i and w (2),
 # g . color (3), s and its prefix (3), R_i and d_a with its division (7),
 # the live mask (3), d_gauss and d_power (4), the mean and conic terms
 # (15), the color terms (3), d_alpha (1), and one add a field for the sums
 # over the tile's pixels (9): 50.
-WALK_PAIR_OPS, K5_NONZERO_OPS, K6_NONZERO_OPS = 23, 5, 50
+WALK_PAIR_OPS, WALK_COLUMN_OPS, WALK_ROW_OPS, WALK_CANDIDATE_OPS = 15, 4, 3, 1
+K5_NONZERO_OPS, K6_NONZERO_OPS = 5, 50
 # the main path's other codecs: (label, format, write options)
 MAIN_CODECS = (("ksplat_l0", "ksplat", dict(compression_level=0)),
                ("ksplat_l1", "ksplat", dict(compression_level=1)),
@@ -1459,20 +1467,23 @@ class plain_path:
 
 def composite_bound_ms(kernel, counts, n_done, bm, nonzero):
     """Least time for K5's or K6's function on one band: the FP32
-    instructions it needs (WALK_PAIR_OPS for each (candidate, pixel) pair
-    the tiles walk, the sum over tiles of min(count, n_done * BM) * 256,
-    and K5_NONZERO_OPS or K6_NONZERO_OPS more for each of the ``nonzero``
-    pairs with a != 0) over their issue rate, or its bytes (the walked
+    instructions it needs over their issue rate, or its bytes (the walked
     window rows, 36 B each, read once; the per-pixel outputs and saved
-    transmittances; K6 also its gradient rows) over the memory rate."""
+    transmittances; K6 also its gradient rows) over the memory rate.  The
+    tiles walk the sum over tiles of min(count, n_done * BM) candidates,
+    each with its 256 pairs, 16 columns and 16 rows (WALK_*_OPS), and
+    K5_NONZERO_OPS or K6_NONZERO_OPS more for each of the ``nonzero``
+    pairs with a != 0."""
     c = counts.numel()
     rows = int(torch.minimum(counts.long(), n_done.long() * bm).sum())
     blocks = int(n_done.long().sum())
+    walk = (256 * WALK_PAIR_OPS + 16 * WALK_COLUMN_OPS + 16 * WALK_ROW_OPS
+            + WALK_CANDIDATE_OPS)
     if kernel == "K5":
-        ops = rows * 256 * WALK_PAIR_OPS + nonzero * K5_NONZERO_OPS
+        ops = rows * walk + nonzero * K5_NONZERO_OPS
         nbytes = rows * 36 + c * 256 * 16 + blocks * 256 * 4 + c * 8
     else:
-        ops = rows * 256 * WALK_PAIR_OPS + nonzero * K6_NONZERO_OPS
+        ops = rows * walk + nonzero * K6_NONZERO_OPS
         nbytes = rows * 72 + c * 256 * 16 + blocks * 256 * 4 + c * 16
     t_ops, t_bytes = ops / FP32_INSTR_RATE, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
@@ -1554,9 +1565,39 @@ def k6_shuffles(live):
     return int((81 * full + 54 * (rest > 2) + 45 * ((rest > 0) & (rest <= 2))).sum())
 
 
+def queued_ms(fn, reps=10, spin_cycles=20_000_000):
+    """Mean device time (ms) of a call of ``fn``, by CUDA events around
+    ``reps`` calls queued behind a spin of the card (about 10 ms), so that
+    they run back to back: without the host's launch overhead, which CUDA
+    events around a single call include.  The start event must still be
+    pending once the last call is queued, else the card may have idled
+    between calls: then the spin is doubled and the timing taken again, up
+    to three times.  (Per-kernel sums of torch.profiler with only CUDA
+    activity missed launches late in a long run of this script.)"""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued_behind_spin = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if queued_behind_spin:
+            return start.elapsed_time(end) / reps
+        spin_cycles *= 2
+    fail(f"queued_ms: the host did not queue {reps} calls within a spin of "
+         f"{spin_cycles // 2} cycles")
+
+
 def time_bands(rz, fwd_calls, bwd_calls):
-    """Per band: K5 and K6 per launch (median of 5), their plain versions
-    (one call), bounds; K6 is timed on the cotangent the main path gave.
+    """Per band: K5 and K6 per launch (median of 5 by CUDA events, and
+    their device time queued back to back, ``queued_ms``), their plain
+    versions (one call) and bounds; K6 is timed on the cotangent the main
+    path gave.
     Also the band's pairs with a != 0, its (warp, candidate) pairs and
     those in which the warp sees the candidate, and the shuffles K6's
     source spends on them."""
@@ -1576,6 +1617,8 @@ def time_bands(rz, fwd_calls, bwd_calls):
             warp_candidate_live=int(live.sum()), k6_shuffles=k6_shuffles(live),
             k5_ms=cuda_median_ms(lambda: rz._composite_fwd_kernel(*args)),
             k6_ms=cuda_median_ms(lambda: rz._composite_bwd_kernel(*saved)),
+            k5_device_ms=queued_ms(lambda: rz._composite_fwd_kernel(*args)),
+            k6_device_ms=queued_ms(lambda: rz._composite_bwd_kernel(*saved)),
             k5_plain_ms=cuda_median_ms(
                 lambda: rz._composite_fwd_ref(bm, geo, al, origin, counts, bg, True),
                 reps=1, warmup=0),
@@ -1691,22 +1734,32 @@ def phase_render(smi):
     for key in ("fwd_profile", "fwd_grad_profile"):
         log(f"[render] {key} on {smi}: {json.dumps(out[key])}")
     log(f"[render] largest band vs plain: {json.dumps(out['band_check'])}")
-    # K6 alone: per band and a frame against its bound, its ptxas line, the
-    # share of (warp, candidate) pairs in which the warp sees the candidate
-    # (the ones K6 reduces), and the shuffles its source spends on them
+    # K5 and K6 alone: per band and a frame against their bounds, their
+    # ptxas lines;
+    # for K6 also the share of (warp, candidate) pairs in which the warp
+    # sees the candidate (the ones K6 reduces), and the shuffles its source
+    # spends on them
     from gsconverter_tpu_torch.utils import cuda_build
 
     bands = out["bands"]
-    k6_ms = [b["k6_ms"] for b in bands]
-    k6_bound = sum(b["k6_bound_ms"] for b in bands)
+
+    def alone(key, entry):
+        ms = [b[f"{key}_ms"] for b in bands]
+        bound = sum(b[f"{key}_bound_ms"] for b in bands)
+        return dict(
+            per_band_ms=ms, frame_ms=sum(ms),
+            device_per_band_ms=[b[f"{key}_device_ms"] for b in bands],
+            device_frame_ms=sum(b[f"{key}_device_ms"] for b in bands), bound_ms=bound,
+            share_of_bound=bound / sum(ms),
+            ptxas=ptxas_lines(cuda_build.BUILD_LOG.get("composite", ""), entry) or
+            ["not in this process's build log (a cached library)"])
+
+    out["k5"] = alone("k5", "composite_fwd_kernel")
+    log(f"[render] K5 on {smi}: {json.dumps(out['k5'])}")
     n_live = sum(b["warp_candidate_live"] for b in bands)
     n_shfl = sum(b["k6_shuffles"] for b in bands)
     out["k6"] = dict(
-        per_band_ms=k6_ms, frame_ms=sum(k6_ms), bound_ms=k6_bound,
-        share_of_bound=k6_bound / sum(k6_ms),
-        ptxas=ptxas_lines(cuda_build.BUILD_LOG.get("composite", ""),
-                          "composite_bwd_kernel") or
-        ["not in this process's build log (a cached library)"],
+        alone("k6", "composite_bwd_kernel"),
         nonzero_share=sum(b["nonzero_pairs"] for b in bands)
         / sum(b["walked_pairs"] for b in bands),
         warp_candidate_live_share=n_live / sum(b["warp_candidate_pairs"] for b in bands),
@@ -2025,7 +2078,10 @@ def main():
             "shape": {"bands": band_shapes, "block_m": RENDER_BM},
         })
     kernels[-2]["band_check"] = check
-    kernels[-1]["ptxas"] = rend["k6"]["ptxas"]
+    for key, entry in zip(("k5", "k6"), kernels[-2:]):
+        entry["ptxas"] = rend[key]["ptxas"]
+        # the kernels' own device time, without the host's launch overhead
+        entry["device_ms"] = rend[key]["device_frame_ms"]
     kernels[-1]["warp_candidate_live_share"] = rend["k6"]["warp_candidate_live_share"]
     log(f"[render] config 4 on {smi}: " + json.dumps(
         {k: v for k, v in rend.items() if k not in ("bands", "band_check")}))

@@ -6,7 +6,8 @@
 // its custom VJP _composite_bwd (:204), for every tile of a band in one
 // launch.  The JAX code runs a while_loop over blocks of BM candidates for
 // a chunk of tiles at a time (many small XLA ops per block); here one CTA
-// composites one 16x16 tile, one thread a pixel.
+// composites one 16x16 tile: K5 a 2x2 group of pixels a thread, K6 one
+// pixel a thread.
 //
 // Inputs (all f32, contiguous): geo [C, M, 8] (mean x, y; conic a, b, c;
 // color r, g, b: the packed window gather), alpha [C, M] (0 on invalid
@@ -35,13 +36,26 @@
 // d_color_i = g w_i.  K6 writes d_geo [C, M, 8], d_alpha [C, M] for the
 // blocks it walked (the wrapper zeroes the rest) and d_bg partials [C, 3].
 //
-// What bounds them.  K5: FP32 issue, about two dozen instructions and one
-// expf a live (candidate, pixel) pair; the bytes (36 a candidate, read
-// once per tile) are small beside that.  One thread a pixel, candidates
-// staged through shared memory.  Alpha is computed with the plain PyTorch
-// version's roundings and the accurate expf (not __expf), so every alpha,
-// and with it every clamp and exit decision, is the plain version's; the
-// image stays within 2e-5 of it.
+// What bounds them.  K5: FP32 issue, about 15 instructions (its expf
+// counted as 4) a walked (candidate, pixel) pair once the terms of a
+// pixel's row (dy, (cc dy) dy) and column (dx, (ca dx) dx, (2 cb) dx) are
+// formed once a row or column; the bytes (36 a candidate, read once per
+// tile) are small beside that.  With one thread a pixel, each candidate's nine values
+// cost nine shared loads a pixel, and the shared-memory pipe (about one
+// warp-wide load a clock an SM, against four FP32 instructions) set the
+// pace.  This design gives a thread a 2x2 group of pixels.  For each block
+// of candidates the tile forms every column's and row's terms once, in
+// shared memory; a thread then reads a candidate's terms for its two
+// columns and two rows and its alpha and color with three 16-byte loads,
+// and runs four independent transmittance and color chains.  The color
+// sums of a block are scaled by the block's entry T once, at its end.
+// The next block's rows are copied by cp.async while the current one
+// composites.  Alpha is computed with the plain PyTorch version's
+// roundings and the accurate expf (not __expf), so every alpha, and with
+// it every clamp and exit decision, is the plain version's; each pixel's
+// transmittance is the sequential product of its (1 - a) factors, a
+// candidate at a time, then a block at a time; the image stays within
+// 2e-5 of the plain version's.
 //
 // K6 sums 9 per-pixel terms a candidate over the tile's 256 pixels.  Done
 // as a 5-step __shfl_xor_sync butterfly a term, that is 45 shuffles a
@@ -72,12 +86,13 @@
 // instructions and one expf), and pass 2's gradient chain with its
 // division where a warp sees the candidate.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads a CTA, one a pixel
+constexpr int kPixels = kTile * kTile;  // pixels a tile; K6: threads a CTA
 constexpr int kWarps = kPixels / 32;
 constexpr int kMaxBm = 64;             // candidates a block stages
 constexpr int kGeo = 8;                // mean (2), conic (3), color (3)
@@ -138,47 +153,186 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kPixels)
+// K5 gives each thread a 2x2 group of pixels: 64 threads a tile.
+constexpr int kFwdThreads = kPixels / 4;
+constexpr int kPairs = kTile / 2;  // column (row) pairs of a tile
+
+// One block of candidates as K5 copies it from the window: each geo row as
+// two float4 (mean x, y, conic a, b | conic c, color r, g, b), and alpha.
+struct FwdRows {
+  float4 geo[kMaxBm][2];
+  float al[kMaxBm];
+};
+
+// A block's terms for one tile, each formed once: of candidate j and
+// column pair q (x = 2q, 2q + 1) t1 = (ca dx) dx and u = (2 cb) dx of x =
+// 2q, then of 2q + 1; of row pair q (y = 2q, 2q + 1) dy and t3 = (cc dy) dy
+// of y = 2q, then of 2q + 1; and j's alpha and color.  A thread reads a
+// candidate with three 16-byte loads for its four pixels.
+struct FwdTerms {
+  float4 col[kMaxBm][kPairs];
+  float4 row[kMaxBm][kPairs];
+  float4 cand[kMaxBm];  // alpha, color r, g, b
+};
+
+// Copies the block of bm candidates starting at `geo`/`alpha` into `s`
+// (cp.async, one stage; thread t takes candidates t, t + kFwdThreads, ...).
+// Each row goes as two 16-byte copies: geo is 16-byte aligned (the entry
+// point checks it) and a row is 32 bytes, so every row is.
+__device__ __forceinline__ void copy_rows(FwdRows& s, const float* __restrict__ geo,
+                                          const float* __restrict__ alpha, int bm, int t) {
+  for (int j = t; j < bm; j += kFwdThreads) {
+    const float* row = geo + static_cast<size_t>(j) * kGeo;
+    float* dst = reinterpret_cast<float*>(s.geo[j]);
+    __pipeline_memcpy_async(dst, row, 16);
+    __pipeline_memcpy_async(dst + 4, row + 4, 16);
+    __pipeline_memcpy_async(&s.al[j], alpha + j, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// Forms the block's terms from its rows.  Warp 0 forms the column pairs'
+// terms, warp 1 the row pairs' (and each candidate's alpha and color):
+// lane l takes pair l % 8 of candidates l / 8, l / 8 + 4, ...  `c0`, `c1`
+// are the centers of the lane's pair (x or y), every product rounded on
+// its own as in alpha_at.
+__device__ __forceinline__ void form_terms(FwdTerms& s, const FwdRows& r, int bm, int t,
+                                           float c0, float c1) {
+  const int q = t % kPairs;
+  const int lane = t % 32;
+  if (t < 32) {
+    for (int j = lane / kPairs; j < bm; j += 32 / kPairs) {
+      const float4 q0 = r.geo[j][0];
+      const float cb2 = __fmul_rn(2.0f, q0.w);
+      const float dx0 = __fsub_rn(c0, q0.x), dx1 = __fsub_rn(c1, q0.x);
+      s.col[j][q] = make_float4(__fmul_rn(__fmul_rn(q0.z, dx0), dx0), __fmul_rn(cb2, dx0),
+                                __fmul_rn(__fmul_rn(q0.z, dx1), dx1), __fmul_rn(cb2, dx1));
+    }
+  } else {
+    for (int j = lane / kPairs; j < bm; j += 32 / kPairs) {
+      const float my = r.geo[j][0].y;
+      const float4 q1 = r.geo[j][1];
+      const float dy0 = __fsub_rn(c0, my), dy1 = __fsub_rn(c1, my);
+      s.row[j][q] = make_float4(dy0, __fmul_rn(__fmul_rn(q1.x, dy0), dy0), dy1,
+                                __fmul_rn(__fmul_rn(q1.x, dy1), dy1));
+      if (q == 0) s.cand[j] = make_float4(r.al[j], q1.y, q1.z, q1.w);
+    }
+  }
+}
+
+// Stores the values of two neighbouring pixels.
+__device__ __forceinline__ void store2(float* dst, float v0, float v1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+
+// K5: a CTA composites one tile, thread t the 2x2 group of pixels at
+// columns x0, x0 + 1 = 2 (t % 8) + {0, 1} and rows y0, y0 + 1 = 2 (t / 8) +
+// {0, 1}.  Per block the tile forms each column's and row's terms once
+// (form_terms); per candidate a thread then reads them with three shared
+// loads and forms, per pixel, t2 = ((2 cb) dx) dy and the rest of alpha_at:
+// every product and sum rounded on its own in alpha_at's order, so each
+// alpha is bit-identical to it.  The four pixels are independent chains
+// of tb *= 1 - a and of the block's color sums (of a tb color), which are
+// scaled by the block's entry T at its end.  Block b + 1's rows are
+// copied (cp.async) while block b composites.  A tile stops at a block
+// boundary when no pixel has T > T_EPS (an OR over the thread's pixels,
+// then __syncthreads_or) or after ceil(count / bm) blocks.
+__global__ void __launch_bounds__(kFwdThreads)
 composite_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ alpha,
                      const float* __restrict__ origin, const int* __restrict__ count,
                      const float* __restrict__ bg, float* __restrict__ rgb,
                      float* __restrict__ t_starts, float* __restrict__ t_final,
                      int* __restrict__ n_done, int C, int M, int bm) {
-  __shared__ Cands s;
+  __shared__ FwdRows rows[2];
+  __shared__ FwdTerms terms;
   const int c = blockIdx.x;
-  const int p = threadIdx.x;
-  const float gx = origin[2 * c] + (static_cast<float>(p & (kTile - 1)) + 0.5f);
-  const float gy = origin[2 * c + 1] + (static_cast<float>(p / kTile) + 0.5f);
+  const int t = threadIdx.x;
+  const int gq = t % kPairs, gr = t / kPairs;  // the thread's column and row pair
+  const int x0 = 2 * gq, y0 = 2 * gr;
+  // the centers of the pair whose terms this thread forms (form_terms)
+  const float o = origin[2 * c + (t < 32 ? 0 : 1)];
+  const float c0 = o + (static_cast<float>(2 * (t % kPairs)) + 0.5f);
+  const float c1 = o + (static_cast<float>(2 * (t % kPairs) + 1) + 0.5f);
   const int nb = M / bm;
   const int nbt = min((count[c] + bm - 1) / bm, nb);
   const size_t win = static_cast<size_t>(c) * M;
 
-  float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f;
+  float T[2][2], cr[2][2], cg[2][2], cb[2][2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) T[k][i] = 1.f, cr[k][i] = cg[k][i] = cb[k][i] = 0.f;
+  }
+  if (nbt > 0) copy_rows(rows[0], geo + win * kGeo, alpha + win, bm, t);
   int b = 0;
   for (; b < nbt; ++b) {
-    // also the barrier before the staging overwrites the last block
-    if (!__syncthreads_or(T > kTEps)) break;
-    const size_t off = win + static_cast<size_t>(b) * bm;
-    stage(s, geo + off * kGeo, alpha + off, bm, p);
-    __syncthreads();
-    t_starts[(static_cast<size_t>(b) * C + c) * kPixels + p] = T;
-    float tb = 1.f;
-    for (int j = 0; j < bm; ++j) {
-      const Alpha v = alpha_at(s, j, gx, gy);
-      const float w = v.a * tb * T;
-      cr += w * s.r[j];
-      cg += w * s.g[j];
-      cb += w * s.b[j];
-      tb *= 1.f - v.a;
+    const bool alive = T[0][0] > kTEps || T[0][1] > kTEps || T[1][0] > kTEps ||
+                       T[1][1] > kTEps;
+    __pipeline_wait_prior(0);  // this thread's copies of block b are in
+    // every thread's too, and every thread is done with block b - 1's terms
+    // and rows
+    if (!__syncthreads_or(alive)) break;
+    if (b + 1 < nbt) {
+      const size_t off = win + static_cast<size_t>(b + 1) * bm;
+      copy_rows(rows[(b + 1) & 1], geo + off * kGeo, alpha + off, bm, t);
     }
-    T *= tb;
+    form_terms(terms, rows[b & 1], bm, t, c0, c1);
+    float* ts = t_starts + (static_cast<size_t>(b) * C + c) * kPixels;
+    store2(ts + y0 * kTile + x0, T[0][0], T[0][1]);
+    store2(ts + (y0 + 1) * kTile + x0, T[1][0], T[1][1]);
+    __syncthreads();  // the terms are in
+
+    float tb[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+    float pr[2][2] = {}, pg[2][2] = {}, pb[2][2] = {};  // the block's sums before T
+#pragma unroll 4
+    for (int j = 0; j < bm; ++j) {
+      const float4 cq = terms.col[j][gq];
+      const float4 rq = terms.row[j][gr];
+      const float4 cd = terms.cand[j];
+      const float t1[2] = {cq.x, cq.z}, u[2] = {cq.y, cq.w};
+      const float dy[2] = {rq.x, rq.z}, t3[2] = {rq.y, rq.w};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float t2 = __fmul_rn(u[i], dy[k]);
+          const float power = __fmul_rn(-0.5f, __fadd_rn(__fadd_rn(t1[i], t2), t3[k]));
+          const float gauss = expf(fminf(power, 0.f));
+          const float am = fminf(__fmul_rn(cd.x, gauss), kAlphaMax);
+          const float a = am < kAlphaMin ? 0.f : am;
+          const float w = a * tb[k][i];
+          pr[k][i] += w * cd.y;
+          pg[k][i] += w * cd.z;
+          pb[k][i] += w * cd.w;
+          tb[k][i] *= 1.f - a;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        cr[k][i] += T[k][i] * pr[k][i];
+        cg[k][i] += T[k][i] * pg[k][i];
+        cb[k][i] += T[k][i] * pb[k][i];
+        T[k][i] *= tb[k][i];
+      }
+    }
   }
-  const size_t px = static_cast<size_t>(c) * kPixels + p;
-  rgb[px * 3 + 0] = cr + T * bg[0];
-  rgb[px * 3 + 1] = cg + T * bg[1];
-  rgb[px * 3 + 2] = cb + T * bg[2];
-  t_final[px] = T;
-  if (p == 0) n_done[c] = b;
+  const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int row = (y0 + k) * kTile + x0;
+    store2(t_final + static_cast<size_t>(c) * kPixels + row, T[k][0], T[k][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* out = rgb + (static_cast<size_t>(c) * kPixels + row + i) * 3;
+      out[0] = cr[k][i] + T[k][i] * bg0;
+      out[1] = cg[k][i] + T[k][i] * bg1;
+      out[2] = cb[k][i] + T[k][i] * bg2;
+    }
+  }
+  if (t == 0) n_done[c] = b;
 }
 
 // Pixel terms of candidate j for K6's pass 2, from pass 1's cached gauss
@@ -401,15 +555,18 @@ bool bad_shape(int C, int M, int bm) {
 
 // K5.  geo [C,M,8], alpha [C,M], origin [C,2], bg [3] f32; count [C] int32;
 // out: rgb [C,256,3], t_starts [M/bm, C, 256], t_final [C,256] f32,
-// n_done [C] int32.  1 <= bm <= 64 divides M.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// n_done [C] int32.  1 <= bm <= 64 divides M; geo starts 16-byte aligned.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int composite_fwd(const float* geo, const float* alpha, const float* origin,
                              const int* count, const float* bg, float* rgb,
                              float* t_starts, float* t_final, int* n_done, int C, int M,
                              int bm, void* stream) {
   if (bad_shape(C, M, bm)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<size_t>(geo) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   if (C == 0) return 0;
-  composite_fwd_kernel<<<C, kPixels, 0, static_cast<cudaStream_t>(stream)>>>(
+  composite_fwd_kernel<<<C, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       geo, alpha, origin, count, bg, rgb, t_starts, t_final, n_done, C, M, bm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -363,6 +363,9 @@ def _composite_fwd_kernel(bm, g_geo, g_alpha, origin, counts, bg):
         raise ValueError(f"counts must be contiguous int32 [{c_sz}] on {dev}")
     if dev.type == "cpu":
         return _composite_fwd_ref(bm, g_geo, g_alpha, origin, counts, bg, per_tile=True)
+    if g_geo.data_ptr() % 16:
+        raise ValueError("K5 copies g_geo's rows 16 bytes at a time: g_geo must start "
+                         "16-byte aligned")
     nb = m // bm
     rgb = torch.empty(c_sz, PIXELS, 3, dtype=torch.float32, device=dev)
     t_starts = torch.empty(nb, c_sz, PIXELS, dtype=torch.float32, device=dev)

@@ -607,6 +607,72 @@ def test_composite_bwd_keeps_the_clamp_edges(card):
             assert float(want) != 0.0 and _field_err(got, want) <= 1e-4, bm
 
 
+def _sequential_fwd(bm, geo, alpha, origin, counts):
+    """t_starts, t_final and n_done of K5's semantics, each pixel's
+    transmittance the sequential product of its factors: tb = tb * (1 - a_j)
+    a candidate at a time, then T = T * tb a block, with ``_block_alpha`` on
+    the card (the kernels' roundings, the accurate exp).  Per-tile exit at
+    block boundaries, as K5 exits."""
+    c_sz, m = alpha.shape
+    nb = m // bm
+    gx, gy = rz._pixel_grid(origin)
+    geo_b, al_b = geo.reshape(c_sz, nb, bm, rz.GEO), alpha.reshape(c_sz, nb, bm)
+    nbt = torch.clamp((counts.long() + bm - 1) // bm, max=nb)
+    T = torch.ones(c_sz, rz.PIXELS, device=alpha.device)
+    t_starts = torch.zeros(nb, c_sz, rz.PIXELS, device=alpha.device)
+    n_done = torch.zeros(c_sz, dtype=torch.int32, device=alpha.device)
+    for b in range(nb):
+        act = (b < nbt) & (T.amax(1) > rz.T_EPS)
+        if not bool(act.any()):
+            break
+        blk = geo_b[:, b]
+        a = rz._block_alpha(blk[..., 0:2], blk[..., 2:5], al_b[:, b], gx, gy)[0]
+        tb = torch.ones_like(T)
+        for j in range(bm):
+            tb = tb * (1.0 - a[:, j])
+        t_starts[b] = T
+        T = torch.where(act[:, None], T * tb, T)
+        n_done += act.to(torch.int32)
+    return t_starts, T, n_done
+
+
+@pytest.mark.parametrize("case", ["clamp_edges", "mixed", "dense", "sparse"])
+def test_composite_fwd_transmittance_bit_equal_to_sequential_products(card, case):
+    """K5's transmittances are the sequential products of (1 - a) over its
+    alphas, bit for bit, so its alphas are ``_block_alpha``'s: t_starts on
+    every composited block, t_final and n_done ``torch.equal`` to
+    ``_sequential_fwd``'s.  The windows: ``clamp_edge_windows`` (power just
+    below 0, raw at 0.99, a at 1/255) and small ``_tile_windows`` (empty,
+    full, saturating and transparent tiles among them)."""
+    if case == "clamp_edges":
+        geo, alpha, origin, counts = (torch.from_numpy(x).to(card)
+                                      for x in clamp_edge_windows())
+        bms = (4, 8, 16)
+    else:
+        geo, alpha, origin, counts = _tile_windows(card, 24, 96, seed=31, kind=case)
+        bms = (32, 6, 48)
+    bg = torch.tensor([0.3, 0.6, 0.9], device=card)
+    for bm in bms:
+        ts, tf, nd = _sequential_fwd(bm, geo, alpha, origin, counts)
+        live = torch.arange(ts.shape[0], device=card)[:, None] < nd[None, :]
+        _, ts_k, tf_k, nd_k = rz._composite_fwd_kernel(bm, geo, alpha, origin, counts, bg)
+        torch.cuda.synchronize()
+        assert torch.equal(nd_k, nd), (bm, nd_k, nd)
+        assert torch.equal(tf_k, tf), bm
+        assert torch.equal(ts_k[live], ts[live]), bm
+
+
+def test_composite_fwd_rejects_an_unaligned_geo(card):
+    """K5 copies each 32-byte geo row as two 16-byte copies, so a geo view
+    that does not start 16-byte aligned is refused, not read wrong."""
+    geo, alpha, origin, counts = _tile_windows(card, 8, 64, seed=3)
+    bg = torch.tensor([0.3, 0.6, 0.9], device=card)
+    geo_off = torch.zeros(geo.numel() + 1, device=card)[1:].view(geo.shape).copy_(geo)
+    assert geo_off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rz._composite_fwd_kernel(16, geo_off, alpha, origin, counts, bg)
+
+
 def test_composite_kernels_repeat_bit_identical(card):
     geo, alpha, origin, counts = _tile_windows(card, 64, 512, seed=5)
     bg = torch.tensor([0.1, 0.0, 0.3], device=card)

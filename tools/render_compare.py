@@ -13,11 +13,12 @@ this checkout's ``chip_smoke.py`` as its harness, so only the package
 differs between runs: it mints ``render_bench_scene`` (1M splats, seed 0),
 renders it at 1088 x 1920 with the bench's settings (``bench_render``)
 and takes the gradient of sum(img^2) with respect to opacity, then
-reports, by CUDA events: K5 and K6 per band with their plain versions and
-bounds (``time_bands``), the forward and forward + gradient (median of 5),
-an Adam step (``bench_train_step``; host clock, synchronised, median of
-5), and ptxas's lines for composite_bwd_kernel.  One JSON line a run; a
-summary last.  Needs one card; exits 1 without one.
+reports, by CUDA events: K5 and K6 per band (also their device time,
+``queued_ms``) with their plain versions and bounds (``time_bands``),
+the forward and forward + gradient (median of 5), an Adam step
+(``bench_train_step``; host clock, synchronised, median of 5), and
+ptxas's lines for composite_fwd_kernel and composite_bwd_kernel.  One
+JSON line a run; a summary last.  Needs one card; exits 1 without one.
 """
 
 import json
@@ -62,10 +63,11 @@ with torch.no_grad():
     bands = cs.time_bands(rz, spy.fwd, spy.bwd)
 out = dict(tree=sys.argv[1], bands=bands,
            **{f"{k}_ms": sum(b[f"{k}_ms"] for b in bands) for k in ("k5", "k6")},
+           **{f"{k}_device_ms": sum(b[f"{k}_device_ms"] for b in bands) for k in ("k5", "k6")},
            **{f"{k}_bound_ms": sum(b[f"{k}_bound_ms"] for b in bands) for k in ("k5", "k6")},
            fwd_ms=cs.cuda_median_ms(fwd), fwd_grad_ms=cs.cuda_median_ms(grad),
-           ptxas=cs.ptxas_lines(cuda_build.BUILD_LOG.get("composite", ""),
-                                "composite_bwd_kernel"))
+           ptxas={k: cs.ptxas_lines(cuda_build.BUILD_LOG.get("composite", ""), k)
+                  for k in ("composite_fwd_kernel", "composite_bwd_kernel")})
 step = cs.bench_train_step(train, cloud, cam, kw)
 step(img)
 times = []
@@ -111,7 +113,8 @@ def main():
     for tree in trees:
         mine = [r for r in runs if r["tree"] == tree]
         summary[tree] = {k: [r[k] for r in mine]
-                         for k in ("k5_ms", "k6_ms", "k6_bound_ms", "fwd_ms", "fwd_grad_ms",
+                         for k in ("k5_ms", "k5_device_ms", "k6_ms", "k6_device_ms",
+                                   "k5_bound_ms", "k6_bound_ms", "fwd_ms", "fwd_grad_ms",
                                    "step_ms")}
     print(json.dumps(summary), flush=True)
     return 0
