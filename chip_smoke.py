@@ -90,6 +90,22 @@ Phases (any failure ends the run with a non-zero exit):
      at levels 1 and 10, 11 K2 and K4 launches each, against phase 7's
      host-cloud file (the palette byte-identical, other texels within one
      step).
+ 10. the multi-device layer (gsconverter_tpu_torch.parallel), after phase
+     9's checkpoint runs: (a) a one-rank NCCL group on the card, on whose
+     mesh sharded_sor_mask at the main path's n (its sorted positions from
+     phase 4) must equal sor_mask's mask, sharded_kmeans_chunked at config
+     3's level-1 palette shape (64 x 65,536 x 24, k=1024) must be bit-identical
+     to kmeans_chunked, and sharded_kmeans at 1,048,576 x 24, K=4096 must
+     launch K3, its labels equal to the plain assign of its centroids on
+     every row; (b) two ranks over gloo, both on the one card (collectives
+     staged through the host): config 2's 1M scene through Converter.run to
+     .splat (byte-identical to phase 4's file), a 200k-splat ply -> sog at
+     level 1 (byte-identical to the single-process file) and the same
+     chunked fit as (a) (bit-identical to kmeans_chunked), each rank's K1,
+     K2, K3 and K4 launches, halo, all-gather and all-reduce bytes and
+     walls logged; every path must launch its kernels on every rank, and
+     go once through its sharded function (sharded_sor_mask for .splat,
+     sharded_kmeans_chunked for .sog and the fit), which must send bytes.
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -193,6 +209,9 @@ BATCH_LEVEL = 1
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "chip_smoke")
+# phase 10: the backend of its one-rank group, the ranks of its gloo world
+# on one card, and that world's ply -> sog scene (points, level)
+MD_BACKEND, MD_WORLD, MD_SOG_N, MD_SOG_LEVEL = "nccl", 2, 200_000, 1
 
 
 def log(msg):
@@ -1892,6 +1911,239 @@ def phase_render(smi):
     return out
 
 
+# ---------------------------------------- phase 10: the multi-device layer
+
+
+def kernel_counts():
+    """K1-K4's launch counts (K2's sum stage also counts under K4)."""
+    from gsconverter_tpu_torch.ops import kmeans as km
+    from gsconverter_tpu_torch.ops import sor
+
+    return dict(k1=sor.KERNEL_LAUNCHES, k2=km.LAUNCHES["lloyd"],
+                k3=km.LAUNCHES["assign"], k4=km.LAUNCHES["update"])
+
+
+def reset_counts():
+    """Every kernel count and the collectives' byte counts to 0."""
+    from gsconverter_tpu_torch.ops import kmeans as km
+    from gsconverter_tpu_torch.ops import sor
+    from gsconverter_tpu_torch.parallel import distributed as pd
+
+    sor.KERNEL_LAUNCHES = 0
+    km.LAUNCHES.update(dict.fromkeys(km.LAUNCHES, 0))
+    pd.BYTES.update(dict.fromkeys(pd.BYTES, 0))
+
+
+def tensor_digest(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def md_chunked_input():
+    """Config 3's palette input at level 1: (rows, chunks, k per chunk)."""
+    return sog_rows(SOG_N, SOG_D, seed=11), SOG_CHUNKS, K2_KS[0]
+
+
+def phase_multidevice_one_rank(sor, km, smi, sor_pos):
+    """Phase 10 (a): a one-rank MD_BACKEND (NCCL) group on the card; the
+    sharded SOR, chunked K-Means and K-Means on its mesh against the
+    single-device calls.  Returns the results and the digests of the
+    single-device chunked fit."""
+    import torch.distributed as dist
+    from gsconverter_tpu_torch.ops.padding import PAD_POS, next_pow2, pad_rows
+    from gsconverter_tpu_torch.parallel import distributed as pd
+    from gsconverter_tpu_torch.parallel.mesh import make_mesh
+
+    rendezvous = os.path.join(OUT_DIR, "md_one_rank")
+    dist.init_process_group(MD_BACKEND, init_method=f"file://{rendezvous}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device=None if MD_BACKEND == "nccl" else DEVICE)
+        out = dict(backend=mesh.backend, size=mesh.size, device=str(mesh.device))
+        k, sigma = sor.intensity_to_params(MAIN_FLAGS["sor_intensity"])
+        reset_counts()
+        # the first collective of an NCCL group also sets up its communicator
+        mask, wall = timed(lambda: pd.sharded_sor_mask(sor_pos, mesh, k=k, sigma=sigma))
+        out["sor"] = dict(n=sor_pos.shape[0], wall_s=wall, launches=kernel_counts(),
+                          bytes=dict(pd.BYTES), kept=int(mask.sum()))
+        _, out["sor"]["second_wall_s"] = timed(
+            lambda: pd.sharded_sor_mask(sor_pos, mesh, k=k, sigma=sigma))
+        single, out["sor"]["single_wall_s"] = timed(lambda: sor.sor_mask(sor_pos, k, sigma))
+        out["sor"]["equal"] = bool(torch.equal(mask, single))
+        x, chunks, kc = md_chunked_input()
+        n = x.shape[0]
+        chunk = next_pow2(-(-n // chunks), floor=max(256, kc))
+        xp = pad_rows(x, chunk * chunks, PAD_POS)
+        reset_counts()
+        (c, labels), wall = timed(lambda: pd.sharded_kmeans_chunked(
+            xp, n, chunks, kc, 10, 100, mesh))
+        out["chunked"] = dict(shape=[chunks, chunk, SOG_D, kc], wall_s=wall,
+                              launches=kernel_counts(), bytes=dict(pd.BYTES))
+        (c1, l1), out["chunked"]["single_wall_s"] = timed(
+            lambda: km.kmeans_chunked(x, chunks, kc, max_iter=10, seed=100))
+        out["chunked"]["bit_identical"] = bool(torch.equal(c, c1)
+                                               and torch.equal(labels[:n], l1))
+        expect = dict(centroids=tensor_digest(c1), labels=tensor_digest(l1))
+        del x, xp, c, labels, c1, l1
+        rr = np.random.default_rng(6)
+        x = torch.from_numpy(rr.normal(0, 1, (K34_N, K34_D)).astype(np.float32)).to(DEVICE)
+        reset_counts()
+        (c, labels), wall = timed(lambda: pd.sharded_kmeans(x, K34_K, mesh, max_iter=10))
+        out["kmeans"] = dict(shape=[K34_N, K34_D, K34_K], wall_s=wall,
+                             launches=kernel_counts(), bytes=dict(pd.BYTES),
+                             finite=bool(torch.isfinite(c).all()),
+                             labels_equal_plain=float((labels == km._assign_ref(x, c))
+                                                      .float().mean()))
+        del x, c, labels
+    finally:
+        dist.destroy_process_group()
+    log(f"[multidevice] one-rank {out['backend']} group on {smi}: {json.dumps(out)}")
+    if not out["sor"]["equal"]:
+        fail("the sharded SOR mask differs from sor_mask's")
+    if not out["chunked"]["bit_identical"]:
+        fail("sharded_kmeans_chunked differs from kmeans_chunked")
+    if not out["kmeans"]["finite"] or out["kmeans"]["labels_equal_plain"] < 1.0:
+        fail("sharded_kmeans' labels differ from the plain assign of its centroids")
+    for path, kernels in (("sor", ("k1",)), ("chunked", ("k2", "k4")), ("kmeans", ("k3",))):
+        for key in kernels:
+            if out[path]["launches"][key] < 1:
+                fail(f"phase 10's {path} never launched {key.upper()}")
+    return out, expect
+
+
+def md_worker(rank, world, root, cfg):
+    """One rank of phase 10 (b): a gloo group, every rank on one card."""
+    import pickle
+
+    import torch.distributed as dist
+    from gsconverter_tpu_torch.converter import Converter
+    from gsconverter_tpu_torch.ops import kmeans as km
+    from gsconverter_tpu_torch.parallel import distributed as pd
+    from gsconverter_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+
+    globals().update(cfg["settings"])  # the parent's sizes and device
+    # count the sharded calls, so that a path the dispatch declined (every
+    # rank then runs every chunk alone) cannot pass for a sharded one
+    calls = dict(sor=0, chunked=0)
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+    pd.sharded_sor_mask = counting("sor", pd.sharded_sor_mask)
+    pd.sharded_kmeans_chunked = counting("chunked", pd.sharded_kmeans_chunked)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(device=DEVICE)
+        set_active_mesh(mesh)
+        out = {}
+        for label, src, fmt, flags in (
+                ("splat", cfg["main_src"], "splat", MAIN_FLAGS),
+                ("sog", cfg["sog_src"], "sog", dict(compression_level=MD_SOG_LEVEL))):
+            path = os.path.join(root, f"md.{fmt}")
+            conv = Converter(src, path, fmt, device=DEVICE)
+            reset_counts()
+            calls.update(dict.fromkeys(calls, 0))
+            _, wall = timed(lambda: conv.run(**flags))
+            out[label] = dict(wall_s=wall, launches=kernel_counts(), bytes=dict(pd.BYTES),
+                              sharded_calls=dict(calls), stages_s=conv.timer.report())
+            if rank == 0:
+                out[label]["sha256"] = file_digest(path)
+            # the same conversion again: this process's first calls are behind it
+            conv = Converter(src, path, fmt, device=DEVICE)
+            _, out[label]["second_wall_s"] = timed(lambda: conv.run(**flags))
+            out[label]["second_stages_s"] = conv.timer.report()
+            if rank == 0:
+                out[label]["repeat_identical"] = file_digest(path) == out[label]["sha256"]
+            mesh.barrier()
+        x, chunks, kc = md_chunked_input()
+        reset_counts()
+        calls.update(dict.fromkeys(calls, 0))
+        (c, labels), wall = timed(lambda: km.kmeans_chunked(x, chunks, kc, max_iter=10,
+                                                            seed=100))
+        out["chunked"] = dict(wall_s=wall, launches=kernel_counts(), bytes=dict(pd.BYTES),
+                              sharded_calls=dict(calls), centroids=tensor_digest(c),
+                              labels=tensor_digest(labels))
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multidevice_gloo(smi, main_src, runs, expect):
+    """Phase 10 (b): MD_WORLD ranks over gloo on the one card (collectives
+    staged through the host): config 2's 1M scene to .splat, a 200k-splat
+    ply -> sog and config 3's chunked palette fit, each against its
+    single-process result."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    from gsconverter_tpu_torch.converter import Converter
+
+    root = os.path.join(OUT_DIR, "md_gloo")
+    os.makedirs(root, exist_ok=True)
+    sog_src = os.path.join(root, "scene_md_sog.ply")
+    mint_scene(sog_src, MD_SOG_N, seed=12, flyers=0.0)
+    single = os.path.join(root, "single.sog")
+    Converter(sog_src, single, "sog", device=DEVICE).run(compression_level=MD_SOG_LEVEL)
+    sog_digest = file_digest(single)
+    cfg = dict(main_src=main_src, sog_src=sog_src, settings={
+        name: globals()[name] for name in ("DEVICE", "MAIN_FLAGS", "SOG_N", "SOG_D",
+                                           "SOG_CHUNKS", "K2_KS", "MD_SOG_LEVEL")})
+    t0 = time.perf_counter()
+    mp.spawn(md_worker, args=(MD_WORLD, root, cfg), nprocs=MD_WORLD, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(MD_WORLD):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(root)
+    out = dict(world=MD_WORLD, backend="gloo", device=DEVICE, spawn_wall_s=wall,
+               splat_identical_to_phase4=ranks[0]["splat"]["sha256"] == runs["splat"]["sha256"],
+               sog_identical_to_single=ranks[0]["sog"]["sha256"] == sog_digest,
+               chunked_bit_identical=all(
+                   rk["chunked"]["centroids"] == expect["centroids"]
+                   and rk["chunked"]["labels"] == expect["labels"] for rk in ranks),
+               ranks=[{key: {f: v for f, v in rk[key].items()
+                             if f not in ("sha256", "centroids", "labels")}
+                       for key in rk} for rk in ranks])
+    log(f"[multidevice] {MD_WORLD} gloo ranks on {smi}: {json.dumps(out)}")
+    if not out["splat_identical_to_phase4"]:
+        fail("the gloo world's .splat differs from phase 4's")
+    if not out["sog_identical_to_single"]:
+        fail("the gloo world's .sog differs from the single-process file")
+    if not out["chunked_bit_identical"]:
+        fail("the gloo world's chunked K-Means differs from kmeans_chunked")
+    if not (ranks[0]["splat"]["repeat_identical"] and ranks[0]["sog"]["repeat_identical"]):
+        fail("the gloo world's second .splat or .sog differs from its first")
+    for r, rk in enumerate(ranks):
+        for path, kernels in (("splat", ("k1",)), ("sog", ("k2", "k4")),
+                              ("chunked", ("k2", "k4"))):
+            for key in kernels:
+                if rk[path]["launches"][key] < 1:
+                    fail(f"rank {r} of phase 10's gloo world never launched "
+                         f"{key.upper()} on its {path} path")
+        # each path went through its sharded function, which exchanged data
+        for path, call, wire in (("splat", "sor", "halo"), ("sog", "chunked", "all_gather"),
+                                 ("chunked", "chunked", "all_gather")):
+            if rk[path]["sharded_calls"][call] != 1 or rk[path]["bytes"][wire] <= 0:
+                fail(f"rank {r} of phase 10's gloo world did not take the sharded "
+                     f"{call} path on its {path} run: calls {rk[path]['sharded_calls']}, "
+                     f"bytes {rk[path]['bytes']}")
+    return out
+
+
+def md_launches(key, one, gloo):
+    """A kernel's launches on each path of phase 10, by rank."""
+    out = {f"one_rank.{path}": one[path]["launches"][key]
+           for path in ("sor", "chunked", "kmeans")}
+    for r, rk in enumerate(gloo["ranks"]):
+        out.update({f"gloo_rank{r}.{path}": rk[path]["launches"][key]
+                    for path in ("splat", "sog", "chunked")})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1933,10 +2185,14 @@ def main():
     # 9. the device-resident path (config 2 as a device cloud, checkpoints)
     dev_chain = phase_device_chain(sor, smi, main_src, runs)
     ckpt = phase_checkpoint(sor, smi, main_src, runs)
+    # 10. the multi-device layer: a one-rank NCCL group, then gloo ranks on
+    # the one card
+    real = spos[:, 0] < sor._D_VALID_MAX
+    md_one, md_expect = phase_multidevice_one_rank(sor, km, smi, spos[real].contiguous())
+    md_gloo = phase_multidevice_gloo(smi, main_src, runs, md_expect)
     os.unlink(main_src)
     small_same = phase_small_agreement(sor)
     # 5. K1 on the main path's own input
-    real = spos[:, 0] < sor._D_VALID_MAX
     r = compare_k1(sor, spos, k, window, iters, real=real)
     r.update(n=spos.shape[0], k=k, window=window, iters=iters)
     log(f"[k1] main-path input: {json.dumps(r)}")
@@ -1953,7 +2209,7 @@ def main():
     # 8. config 4: the renderer
     rend = phase_render(smi)
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    log(f"[done] phases 3-9 in {time.perf_counter() - t_all:.1f} s; "
+    log(f"[done] phases 3-10 in {time.perf_counter() - t_all:.1f} s; "
         f"small scene byte-identical={small_same}; "
         f"small .sog cuda/cpu mse {small_sog['mse_cuda']:.6g}/{small_sog['mse_cpu']:.6g}")
 
@@ -1968,6 +2224,7 @@ def main():
                                  batch=batch["launches"], device_cloud=dev_chain["launches"],
                                  checkpointed=ckpt["first"]["launches"],
                                  resumed=ckpt["resumed"]["launches"]),
+        "launches_multidevice": md_launches("k1", md_one, md_gloo),
         "max_abs_err": r["max_abs_err"],
         "max_rel": r["max_rel"],
         "ms": r["kernel_ms"],  # the key the harness reads
@@ -1995,6 +2252,7 @@ def main():
         "launches_by_level": {lv: run["launches"]["lloyd"] for lv, run in sog_runs.items()},
         "device_cloud_launches_by_level": {lv: run["launches"]["lloyd"]
                                            for lv, run in dev_sog.items()},
+        "launches_multidevice": md_launches("k2", md_one, md_gloo),
         "max_abs_err": main_k2["max_abs_err"],
         "ms": main_k2["kernel_ms"],
         "kernel_ms": main_k2["kernel_ms"],  # as _fit calls it, x rounded once a fit
@@ -2013,7 +2271,10 @@ def main():
         "route": "cuda",
         "source": kmeans_src,
         "replaces": "gsconverter_tpu/ops/kmeans.py:61",
-        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["assign"],  # not on the SOG path
+        # no conversion path calls K3: the SOG path's count (0); phase 10's
+        # direct sharded_kmeans call launches it (launches_multidevice)
+        "launches": sog_runs[SOG_LEVELS[0]]["launches"]["assign"],
+        "launches_multidevice": md_launches("k3", md_one, md_gloo),
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["kernel_ms"],
         "kernel_ms": k3["kernel_ms"],
@@ -2044,6 +2305,7 @@ def main():
         "skew_ms": k4["skew_ms"],  # every label 0
         "device_cloud_launches_by_level": {lv: run["launches"]["update"]
                                            for lv, run in dev_sog.items()},
+        "launches_multidevice": md_launches("k4", md_one, md_gloo),
         "ordered_equal": k4["ordered_equal"],
         "shape": {"n": K34_N, "d": K34_D, "k": K34_K},
         # on the main path K4 sums K2's segments: n = chunks * rows, k =

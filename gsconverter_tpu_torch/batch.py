@@ -16,6 +16,7 @@ import os
 import torch
 
 from .converter import EXT_MAP, FORMAT_MAX_SH, VALID_FORMATS, Converter
+from .parallel.mesh import multi_rank_mesh
 from .utils.log import status_print
 
 
@@ -32,8 +33,13 @@ def convert_batch(
 
     ``inputs`` may be a glob pattern; ``device`` (default: the card) goes to
     every ``Converter``.  Returns (input, format, output) for the
-    conversions this process performed.
+    conversions this process performed.  Under a multi-rank mesh every rank
+    takes every scene (its conversions run over the mesh, rank 0 writing),
+    so ``process_count`` must be 1.
     """
+    if process_count > 1 and multi_rank_mesh() is not None:
+        raise ValueError("convert_batch: under a multi-rank mesh every rank converts "
+                         "every scene; process_count must be 1")
     if isinstance(inputs, str):
         inputs = sorted(globlib.glob(inputs))
     if isinstance(target_formats, str):

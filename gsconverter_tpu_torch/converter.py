@@ -18,6 +18,12 @@ to the CPU on its own.
 (``utils/checkpoint.py``) and resumes a rerun after the last complete one;
 with ``config.DEBUG`` set, each stage's output is validated
 (``utils/validate.py``).
+
+Under a mesh of more than one rank (``parallel.mesh``: one process per
+device), every rank runs the same conversion on the whole cloud; the
+device stages run on the mesh's device, SOR and the K-Means behind SOG
+take their sharded paths (each rank's share of the kernel work), and rank
+0 alone writes the output while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from .config import ConvertOptions, resolve_device
 from .formats import get_handler
 from .formats.base import BaseFormat
 from .ops import filters, sh
+from .parallel.mesh import multi_rank_mesh
 from .utils import checkpoint
 from .utils import ply as ply_io
 from .utils.log import StageTimer, debug_print, progress, status_print
@@ -142,6 +149,12 @@ class Converter:
                 cloud = self.source_handler.read(self.input_path)
             pbar.update(25)
 
+            # multi-device: every rank holds the whole cloud; SOR and the
+            # SOG palette dispatch to the sharded paths
+            mesh, device = self._mesh_and_device()
+            if mesh is not None:
+                status_print(f"Sharding {cloud.n} splats over {mesh.size} devices.")
+
             # resumable stages: restart after the last complete snapshot
             stage_order = ["sh_cap", "bbox", "alpha", "density", "sor"]
             resume_idx = -1
@@ -220,8 +233,8 @@ class Converter:
             # are pos/opacity plus a row-index extra; the surviving indices
             # gather the real cloud ONCE after the chain.  Snapshots need
             # every leaf after each stage, so checkpointing compacts per
-            # stage.
-            defer_compact = ckpt_dir is None and cloud.is_host
+            # stage, and so does a mesh, as in the JAX package.
+            defer_compact = ckpt_dir is None and cloud.is_host and mesh is None
             full_cloud = None
             if defer_compact and any_filter:
                 full_cloud = cloud
@@ -264,7 +277,7 @@ class Converter:
                         threshold_factor=(10.5 if opts.sor_sigma is None
                                           else float(opts.sor_sigma)),
                         intensity=opts.sor_intensity,
-                        device=self.device,
+                        device=device,
                     ),
                     cloud,
                 )
@@ -328,14 +341,31 @@ class Converter:
         # the pipeline already scanned content for the SH degree and synced
         # the metadata; the hint lets codecs skip their own full re-scan
         write_kwargs.setdefault("sh_content_degree", cloud.active_sh_degree)
-        write_kwargs["device"] = self.device  # codecs without device stages ignore it
+        mesh, device = self._mesh_and_device()
+        write_kwargs["device"] = device  # codecs without device stages ignore it
         with self.timer.stage("write", cloud.n):
-            target_handler.write(cloud, self.output_path, **write_kwargs)
+            # under a mesh rank 0 writes; the other ranks join a writer's
+            # collectives only (the SOG palette fit), then wait for rank 0
+            if mesh is None or mesh.rank == 0 or target_handler.collective_write:
+                target_handler.write(cloud, self.output_path, **write_kwargs)
+            if mesh is not None:
+                mesh.barrier()
         if pbar:
             pbar.update(40)
             pbar.refresh()
             pbar.set_description("Completed")
         return cloud
+
+    def _mesh_and_device(self):
+        """(the multi-rank mesh or None, the device of the device stages):
+        the mesh's device under a mesh, whose kind must be the one asked for."""
+        mesh = multi_rank_mesh()
+        if mesh is None:
+            return None, self.device
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the active mesh runs on {mesh.device}, and this "
+                             f"conversion was asked for {self.device}")
+        return mesh, mesh.device
 
     def write_processed(self, cloud: SplatCloud, source_handler=None,
                         **kwargs: Any) -> SplatCloud:

@@ -43,6 +43,9 @@ class BaseFormat:
     needs_rgb: bool = False
     #: whether raw extra PLY elements survive a write (reference converter.py:275)
     supports_extra_elements: bool = False
+    #: whether ``write`` runs collectives under a multi-rank mesh, so every
+    #: rank calls it (only rank 0 writes the file)
+    collective_write: bool = False
 
     def __init__(self) -> None:
         self.extra_elements: tuple = ()

@@ -45,6 +45,7 @@ from ..config import resolve_device
 from ..ops import quant
 from ..ops.kmeans import kmeans_chunked
 from ..ops.sh import effective_sh_degree
+from ..parallel.mesh import is_writer
 from ..utils.log import status_print
 from .base import BaseFormat, register
 
@@ -233,6 +234,8 @@ class SogFormat(BaseFormat):
     extension = ".sog"
     max_sh_degree = 3
     needs_rgb = True
+    # the shN palette fit takes the sharded K-Means under a mesh
+    collective_write = True
 
     # ----------------------------------------------------------------- read
     def read(self, path: str, **kwargs) -> SplatCloud:
@@ -300,7 +303,8 @@ class SogFormat(BaseFormat):
     def write(self, cloud: SplatCloud, path: str, device=None, **kwargs) -> None:
         """Write ``cloud`` to ``path``.  A host cloud's shN palette is fitted
         on ``device`` (default the card); a tensor cloud's stages run where
-        its tensors live."""
+        its tensors live.  Under a multi-rank mesh every rank encodes (the
+        palette fit is sharded over them) and rank 0 alone writes."""
         if Image is None:
             raise ImportError("Pillow is required to write .sog files.")
         n = cloud.n
@@ -333,6 +337,8 @@ class SogFormat(BaseFormat):
         encode = self._encode_host if cloud.is_host else self._encode_tensor
         (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
          op_u8, fit) = encode(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark)
+        if not is_writer():
+            return
 
         with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf, \
                 _ImageBundle(zf, width, height) as bundle:

@@ -6,6 +6,11 @@ collision suffixes, the no-op conversion guard, overwrite confirmation
 unless --force, and before/after file info reports.  ``--device`` (default
 ``cuda``) is where the device stages (SOR, the SOG palette fit) run; without a GPU, pass
 ``--device cpu``.
+
+Under ``torchrun --nproc_per_node N -m gsconverter_tpu_torch ...`` the N
+processes form a process group (NCCL on ``--device cuda``, gloo on
+``--device cpu``) and the conversion takes the multi-device paths; rank 0
+writes the output.
 """
 
 from __future__ import annotations
@@ -15,8 +20,11 @@ import glob
 import os
 import sys
 
+import torch
+
 from . import __version__, config
 from .converter import EXT_MAP, VALID_FORMATS, Converter
+from .parallel.mesh import init_multihost
 from .utils import ply as ply_io
 
 
@@ -167,6 +175,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    started = init_multihost(backend="nccl" if args.device == "cuda" else "gloo")
+    try:
+        return _main(parser, args)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _main(parser: argparse.ArgumentParser, args: argparse.Namespace) -> int:
     config.DEBUG = args.debug
     config.TIMING = args.timing
 
@@ -241,8 +258,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Auto-Extension: Appended extension, new output: {args.output}")
 
     out_dir = os.path.dirname(args.output)
-    if out_dir and not os.path.exists(out_dir):
-        os.makedirs(out_dir)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
 
     # overwrite prompt (reference main.py:460-466)
     if os.path.exists(args.output) and not args.force:

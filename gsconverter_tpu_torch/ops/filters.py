@@ -88,20 +88,32 @@ def remove_flyers(
 
     ``sor_mask`` runs where a device cloud's positions live; a host cloud's
     positions go to ``device`` (kernel K1 on a CUDA device) and the keep-mask
-    comes back as numpy for its compaction.
+    comes back as numpy for its compaction.  Under a mesh of more than one
+    rank, and more splats than ranks, the mask comes from the halo-exchange
+    ``parallel.distributed.sharded_sor_mask`` (each rank's kernel work on
+    the mesh's device), which equals ``sor_mask``'s.
     """
     if intensity is not None:
         k, threshold_factor = sor_ops.intensity_to_params(intensity)
     debug_print(f"SOR Filter (Remove Flyers) Params: K={k}, Sigma={threshold_factor:.2f}")
     if cloud.n == 0:
         return cloud
+    from ..parallel.mesh import multi_rank_mesh
+
+    pos = cloud.pos
     if cloud.is_host:
         # writable contiguous f32 (leaves may be read-only views of the file)
-        pos = torch.from_numpy(np.require(cloud.pos, np.float32, ["C", "W"]))
-        mask = sor_ops.sor_mask(pos.to(device), int(k), float(threshold_factor))
-        mask = mask.cpu().numpy()
+        pos = torch.from_numpy(np.require(pos, np.float32, ["C", "W"])).to(device)
+    mesh = multi_rank_mesh()
+    if mesh is not None and cloud.n > mesh.size:
+        from ..parallel.distributed import sharded_sor_mask
+
+        debug_print(f"SOR: dispatching to {mesh.size}-rank mesh")
+        mask = sharded_sor_mask(pos, mesh, k=int(k), sigma=float(threshold_factor))
     else:
-        mask = sor_ops.sor_mask(cloud.pos, int(k), float(threshold_factor))
+        mask = sor_ops.sor_mask(pos, int(k), float(threshold_factor))
+    if cloud.is_host:
+        mask = mask.cpu().numpy()
     return _apply_mask(cloud, mask, "removing flyers")
 
 

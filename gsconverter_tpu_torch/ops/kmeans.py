@@ -47,7 +47,10 @@ matrix unit.
 
 Fixed iteration counts, no convergence check; empty clusters keep their
 previous centroid (the JAX package's divergence from the reference, which
-zeroes them).  There is no multi-device dispatch (ROADMAP queue 9).
+zeroes them).  Under a mesh of more than one rank (``parallel.mesh``),
+``kmeans`` and ``kmeans_chunked`` take the sharded paths of
+``parallel/distributed.py`` when the padded rows (and chunks) split evenly
+over the ranks (``_dispatch_mesh``).
 """
 
 from __future__ import annotations
@@ -186,7 +189,7 @@ def _nearest(x: torch.Tensor, c: torch.Tensor, c2: torch.Tensor,
 
 
 def _lloyd_ref(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
-               precision: str = "bf16"):
+               precision: str = "bf16", block_chunks: int | None = None):
     """Plain PyTorch version of kernel K2, blocked over rows.
 
     x [C, P, D], c [C, K, D] f32, n_valid [C] -> (sums [C, K, D] f32,
@@ -194,7 +197,9 @@ def _lloyd_ref(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
     ||c||^2 from the f32 centroids; in bf16 mode x and c are rounded to bf16
     first and the sums add up the rounded x.  Labels are the first argmin
     for every row, with the kernel's roundings on rows < n_valid (see
-    ``_nearest``); only those rows enter the sums and counts.
+    ``_nearest``); only those rows enter the sums and counts.  Rows are
+    blocked as for ``block_chunks`` chunks (default C), so a chunk's sums
+    do not depend on how many chunks share the call.
     """
     _check_precision(precision)
     cc, p, d = x.shape
@@ -204,7 +209,7 @@ def _lloyd_ref(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor,
         x, c = _bf16(x), _bf16(c)
     nv = n_valid.to(x.device).reshape(cc, 1)
     ks = torch.arange(k, device=x.device)
-    bn = max(1, min(p, _REF_ELEMS // max(1, cc * k)))
+    bn = max(1, min(p, _REF_ELEMS // max(1, (block_chunks or cc) * k)))
     sums = x.new_zeros((cc, k, d))
     counts = x.new_zeros((cc, k))
     labels = []
@@ -295,10 +300,10 @@ def _lloyd_precision(x: torch.Tensor, c: torch.Tensor, precision: str) -> str:
 
 
 def _lloyd(x: torch.Tensor, c: torch.Tensor, n_valid: torch.Tensor, precision: str,
-           rounded: bool = False):
+           rounded: bool = False, block_chunks: int | None = None):
     """Route one batched Lloyd step (see the module's table)."""
     if x.device.type == "cpu":
-        return _lloyd_ref(x, c, n_valid, "f32")
+        return _lloyd_ref(x, c, n_valid, "f32", block_chunks)
     return _lloyd_kernel(x.contiguous(), c.contiguous(), n_valid,
                          _lloyd_precision(x, c, precision), rounded)
 
@@ -585,17 +590,20 @@ def _generator(seed: int, chunk: int | None) -> torch.Generator:
 
 
 def init_centroids(x: torch.Tensor, k: int, seed: int,
-                   valid: torch.Tensor | None = None, n_valid=None) -> torch.Tensor:
+                   valid: torch.Tensor | None = None, n_valid=None,
+                   chunk_offset: int = 0) -> torch.Tensor:
     """k-means++ D^2-sampling init, batched over chunks (JAX kmeans.py:384-440).
 
     ``x`` is [P, D] (one problem, seed's own stream) or [C, P, D] (chunk i
-    draws from the stream of (seed, i)); ``valid`` [P] or [C, P] masks
-    padded rows.  The first centroid is row 0; then ``rounds`` rounds each
-    draw m = max(1, k // 128) rows from one D^2 distribution and write them
-    at slot min(1 + r*m, k - m), so the last round may overwrite part of the
-    one before.  Weights are max(d2, 1e-30): an all-padding chunk samples
-    its pad rows uniformly.  With ``n_valid`` and P > 65536 > k the pool is
-    a uniform subsample of 65536 valid rows.  The uniforms come from CPU
+    draws from the stream of (seed, chunk_offset + i), so a rank holding
+    the chunks from chunk_offset on draws what one device draws for them);
+    ``valid`` [P] or [C, P] masks padded rows.  The first centroid is row
+    0; then ``rounds`` rounds each draw m = max(1, k // 128) rows from one
+    D^2 distribution and write them at slot min(1 + r*m, k - m), so the
+    last round may overwrite part of the one before.  Weights are max(d2,
+    1e-30): an all-padding chunk samples its pad rows uniformly.  With
+    ``n_valid`` and P > 65536 > k the pool is a uniform subsample of 65536
+    valid rows.  The uniforms come from CPU
     generators and the sampling (f64 cumsum, searchsorted) runs on x's
     device, so one seed gives one init on every device, and nothing waits
     for the device.
@@ -605,7 +613,7 @@ def init_centroids(x: torch.Tensor, k: int, seed: int,
     vb = None if valid is None else (valid if batched else valid[None])
     cc, p, d = xb.shape
     dev = xb.device
-    gens = [_generator(seed, i if batched else None) for i in range(cc)]
+    gens = [_generator(seed, chunk_offset + i if batched else None) for i in range(cc)]
 
     def uniforms(count):
         return torch.stack([torch.rand(count, generator=g, dtype=torch.float64)
@@ -651,18 +659,19 @@ def _as_points(data, device) -> torch.Tensor:
 
 
 def _fit(xc: torch.Tensor, nv: torch.Tensor, init: torch.Tensor, iters: int,
-         precision: str):
+         precision: str, block_chunks: int | None = None):
     """``iters`` Lloyd steps on [C, P, D] from ``init``, then the final labels
     against the final centroids (one more pass).  On the card in bf16 mode
-    x is rounded once here, not in every step: the rounding is idempotent."""
+    x is rounded once here, not in every step: the rounding is idempotent.
+    ``block_chunks``: the CPU route's row blocking (``_lloyd_ref``)."""
     rounded = xc.device.type == "cuda" and _lloyd_precision(xc, init, precision) == "bf16"
     if rounded:
         xc = _bf16(xc)
     c = init
     for _ in range(iters):
-        sums, counts, _ = _lloyd(xc, c, nv, precision, rounded)
+        sums, counts, _ = _lloyd(xc, c, nv, precision, rounded, block_chunks)
         c = _centroid_means(sums, counts, c)
-    _, _, labels = _lloyd(xc, c, nv, precision, rounded)
+    _, _, labels = _lloyd(xc, c, nv, precision, rounded, block_chunks)
     return c, labels
 
 
@@ -682,6 +691,13 @@ def kmeans(data, k: int, max_iter: int = 10, seed: int = 0,
         return x, torch.arange(n, dtype=torch.int32, device=x.device)
     p = next_pow2(n)
     xp = pad_rows(x, p, PAD_POS).contiguous()
+    mesh = _dispatch_mesh(p)
+    if mesh is not None:
+        from ..parallel.distributed import sharded_kmeans
+
+        c, labels = sharded_kmeans(xp, int(k), mesh, max_iter=int(max_iter),
+                                   seed=seed, n_valid=n, precision=precision)
+        return c, labels[:n]
     valid = torch.arange(p, device=x.device) < n
     init = init_centroids(xp, int(k), seed, valid=valid, n_valid=n)
     c, labels = _fit(xp[None], _n_valid(n, x.device), init[None], int(max_iter),
@@ -707,8 +723,15 @@ def kmeans_chunked(data, num_chunks: int, k_per_chunk: int, max_iter: int = 10,
     n, d = x.shape
     k = int(k_per_chunk)
     chunk = next_pow2(-(-n // num_chunks), floor=max(256, k))
-    xc = pad_rows(x, chunk * num_chunks, PAD_POS).reshape(num_chunks, chunk, d)
-    xc = xc.contiguous()
+    xp = pad_rows(x, chunk * num_chunks, PAD_POS)
+    mesh = _dispatch_mesh(chunk * num_chunks, chunks=num_chunks)
+    if mesh is not None:
+        from ..parallel.distributed import sharded_kmeans_chunked
+
+        c, labels = sharded_kmeans_chunked(xp, n, num_chunks, k, int(max_iter), seed,
+                                           mesh, precision=precision)
+        return c, labels[:n]
+    xc = xp.reshape(num_chunks, chunk, d).contiguous()
     first = torch.arange(num_chunks, device=x.device) * chunk
     nv = torch.clamp(n - first, 0, chunk).to(torch.int32)
     valid = torch.arange(chunk, device=x.device)[None, :] < nv[:, None]
@@ -716,3 +739,17 @@ def kmeans_chunked(data, num_chunks: int, k_per_chunk: int, max_iter: int = 10,
     c, labels = _fit(xc, nv, init, int(max_iter), precision)
     offs = (torch.arange(num_chunks, device=x.device, dtype=torch.int32) * k)[:, None]
     return c.reshape(num_chunks * k, d), (labels + offs).reshape(-1)[:n]
+
+
+def _dispatch_mesh(n_rows: int, chunks: int | None = None):
+    """The active mesh iff it has more than one rank and the padded rows
+    (and the chunks) split evenly over them: the automatic multi-device
+    dispatch, the analogue of the reference's GPU/CPU fallback ladder."""
+    from ..parallel.mesh import multi_rank_mesh
+
+    mesh = multi_rank_mesh()
+    if mesh is None:
+        return None
+    if n_rows % mesh.size or (chunks is not None and chunks % mesh.size):
+        return None
+    return mesh

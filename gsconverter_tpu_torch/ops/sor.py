@@ -278,16 +278,61 @@ def _kernel_fn():
     return fn
 
 
+def window_settings(sigma: float, k: int, passes: int | None = None,
+                    window: int | None = None, iters: int | None = None):
+    """(passes, window, iters) of the window method, as the JAX package picks
+    them by sigma: sigma >= 3 (the slider's range) takes 1 pass, a k-scaled
+    window and 7 bisection steps; tighter sigmas take 2 passes, a window of
+    at least 512 and 10 steps.  Given values are kept."""
+    fast = float(sigma) >= 3.0
+    if passes is None:
+        passes = 1 if fast else 2
+    if window is None:
+        window = resolve_window(k) if fast else max(512, resolve_window(k))
+    if iters is None:
+        iters = 7 if fast else 10
+    if window <= 0:
+        raise ValueError(f"sor_mask: window must be positive, got {window}")
+    return passes, window, iters
+
+
+def window_route(n: int, window: int) -> tuple[bool, int, int]:
+    """(use_kernel, padded size, block) of one pass over n points: kernel K1
+    on 512-point blocks from the 4096 bucket up (N padded to a multiple of
+    512), else the exact top-k loop on blocks of min(1024, next_pow2(n))
+    (N padded to that power of two)."""
+    use_kernel = next_pow2(n) >= KERNEL_MIN_BUCKET and KERNEL_BLOCK % window == 0
+    if use_kernel:
+        return True, round_up(n, KERNEL_BLOCK), KERNEL_BLOCK
+    p = next_pow2(n)
+    return False, p, min(1024, p)
+
+
+def window_pass_md(spos: torch.Tensor, k: int, window: int, iters: int,
+                   use_kernel: bool, block: int) -> torch.Tensor:
+    """One pass's mean-KNN distance per Morton-sorted row (pad rows at
+    PAD_POS) by the route ``window_route`` chose."""
+    if use_kernel:
+        return _sor_window_loop_kernel(spos, k, window, iters)
+    return _sor_window_loop(spos, spos[:, 0] < _D_VALID_MAX, k, window,
+                            min(block, spos.shape[0]))
+
+
 def _sor_md_window(pos: torch.Tensor, valid: torch.Tensor, k: int, window: int,
                    passes: int, iters: int, use_kernel: bool,
-                   block: int = 1024) -> torch.Tensor:
+                   block: int = 1024, pass_md=None) -> torch.Tensor:
     """Ensemble-MIN mean-KNN distance over ``passes`` Morton orders.
 
     Each pass re-sorts (positions, original index, running md) by the next
     order's key; one scatter at the end restores the caller's order.
     Invalid rows are moved to PAD_POS so validity survives the sorts.
+    ``pass_md(sorted positions)`` computes a pass (default
+    ``window_pass_md``; the sharded SOR passes its own).
     """
     n = pos.shape[0]
+    if pass_md is None:
+        def pass_md(spos):
+            return window_pass_md(spos, k, window, iters, use_kernel, block)
     cpos = torch.where(valid[:, None], pos, PAD_POS)
     cidx = torch.arange(n, device=pos.device)
     cmd = torch.full((n,), torch.inf, dtype=torch.float32, device=pos.device)
@@ -296,12 +341,7 @@ def _sor_md_window(pos: torch.Tensor, valid: torch.Tensor, k: int, window: int,
         key = _morton_key(cpos, cvalid, rot, shift)
         order = torch.sort(key, stable=True).indices
         cpos, cidx, cmd = cpos[order], cidx[order], cmd[order]
-        if use_kernel:
-            md_sorted = _sor_window_loop_kernel(cpos, k, window, iters)
-        else:
-            md_sorted = _sor_window_loop(cpos, cpos[:, 0] < _D_VALID_MAX, k,
-                                         window, min(block, n))
-        cmd = torch.minimum(cmd, md_sorted)
+        cmd = torch.minimum(cmd, pass_md(cpos))
     md = torch.empty_like(cmd)
     md[cidx] = cmd
     return md
@@ -476,21 +516,11 @@ def sor_mask(pos: torch.Tensor, k: int, sigma: float, method: str = "window",
         return _sor_mask_stats(md, valid, n, sigma)
     if method != "window":
         raise ValueError(f"sor_mask: method must be 'window' or 'grid', got {method!r}")
-    fast = float(sigma) >= 3.0
-    if passes is None:
-        passes = 1 if fast else 2
-    if window is None:
-        window = resolve_window(k) if fast else max(512, resolve_window(k))
-    if iters is None:
-        iters = 7 if fast else 10
-    if window <= 0:
-        raise ValueError(f"sor_mask: window must be positive, got {window}")
+    passes, window, iters = window_settings(sigma, k, passes, window, iters)
     k = min(int(k), MAX_K)
     n = pos.shape[0]
-    use_kernel = (next_pow2(n) >= KERNEL_MIN_BUCKET
-                  and KERNEL_BLOCK % window == 0)
-    p = round_up(n, KERNEL_BLOCK) if use_kernel else next_pow2(n)
+    use_kernel, p, block = window_route(n, window)
     posp = pad_rows(pos.to(torch.float32), p, PAD_POS).contiguous()
     valid = torch.arange(p, device=pos.device) < n
-    md = _sor_md_window(posp, valid, k, window, passes, iters, use_kernel)
+    md = _sor_md_window(posp, valid, k, window, passes, iters, use_kernel, block)
     return _sor_mask_stats(md, valid, n, sigma)[:n]

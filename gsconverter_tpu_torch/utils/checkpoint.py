@@ -4,8 +4,10 @@ A preempted conversion resumes at its last completed stage.  The file
 format is the JAX package's, so a snapshot written by either package loads
 in the other: one directory a stage holding ``shard{i}.npz`` (the leaves,
 ``extra__<name>`` for each extra) and ``manifest.json`` (``stage``, ``n``,
-``active_sh_degree``, ``shards``).  Each process of a ``torch.distributed``
-group writes its own shard, its rank; ``load`` concatenates them.
+``active_sh_degree``, ``shards``).  Under a mesh of more than one rank
+every rank holds the whole cloud, and rank r writes shard r: its
+``shard_bounds(n, r, size)`` rows; rank 0 writes the manifest once every
+shard is on disk.  ``load`` concatenates the shards in order.
 """
 
 from __future__ import annotations
@@ -14,18 +16,22 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from ..cloud import SplatCloud
+from ..parallel.mesh import multi_rank_mesh
 
 MANIFEST = "manifest.json"
 
 
 def _rank_and_size() -> tuple[int, int]:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    mesh = multi_rank_mesh()
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+
+
+def _barrier() -> None:
+    mesh = multi_rank_mesh()
+    if mesh is not None:
+        mesh.barrier()
 
 
 def save(cloud: SplatCloud, directory: str, stage: str) -> str:
@@ -42,12 +48,19 @@ def save(cloud: SplatCloud, directory: str, stage: str) -> str:
     for k, v in c.extras.items():
         arrays[f"extra__{k}"] = v
     shard, shards = _rank_and_size()
+    if shards > 1:
+        from ..parallel.io import shard_bounds
+
+        lo, hi = shard_bounds(cloud.n, shard, shards)
+        arrays = {k: v[lo:hi] for k, v in arrays.items()}
     np.savez_compressed(os.path.join(snap, f"shard{shard}.npz"), **arrays)
+    _barrier()  # every shard on disk before the manifest names them
     if shard == 0:
         with open(os.path.join(snap, MANIFEST), "w") as f:
             json.dump(dict(stage=stage, n=cloud.n,
                            active_sh_degree=cloud.active_sh_degree,
                            shards=shards), f)
+    _barrier()
     return snap
 
 

@@ -70,16 +70,19 @@ def test_jax_snapshot_loads_in_the_port_and_back(tmp_path):
 
 
 def test_each_rank_writes_its_shard(tmp_path, monkeypatch):
-    """Under a torch.distributed group each rank writes ``shard{rank}``;
-    rank 0 writes the manifest, and ``load`` concatenates the shards."""
-    a, b = _port_cloud(30, seed=1), _port_cloud(20, seed=2)
+    """Under a mesh every rank holds the whole cloud and rank r writes
+    ``shard{r}``, its ``shard_bounds`` rows; rank 0 writes the manifest,
+    and ``load`` gives the cloud back in order."""
+    a = _port_cloud(31, seed=1)
     monkeypatch.setattr(checkpoint, "_rank_and_size", lambda: (1, 2))
-    checkpoint.save(b, str(tmp_path), "sor")
+    checkpoint.save(a, str(tmp_path), "sor")
     assert not os.path.exists(tmp_path / "sor" / "manifest.json")
+    with np.load(tmp_path / "sor" / "shard1.npz") as z:
+        np.testing.assert_array_equal(z["pos"], a.pos[16:])
     monkeypatch.setattr(checkpoint, "_rank_and_size", lambda: (0, 2))
     checkpoint.save(a, str(tmp_path), "sor")
     got = checkpoint.load(str(tmp_path), "sor")
-    np.testing.assert_array_equal(got.pos, np.concatenate([a.pos, b.pos]))
+    assert_clouds_equal(got, a)
     assert sorted(os.listdir(tmp_path / "sor")) == ["manifest.json", "shard0.npz", "shard1.npz"]
 
 
