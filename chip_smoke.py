@@ -106,6 +106,22 @@ Phases (any failure ends the run with a non-zero exit):
      walls logged; every path must launch its kernels on every rank, and
      go once through its sharded function (sharded_sor_mask for .splat,
      sharded_kmeans_chunked for .sog and the fit), which must send bytes.
+ 11. the multi-device renderer and training step on phase 8's 1M-splat
+     scene at 1088 x 1920, with phase 8's auto_budget (max_per_tile,
+     max_global; no band plan, which belongs to one image), windowed,
+     block_m=64: (a) in phase 10 (a)'s one-rank group, sharded_render must
+     equal render(bg=0) bit for bit, band_occupancy must be the count of
+     splats in front of the camera, sharded_render_tiles (auto budget)
+     must reach 35 dB against render, and one make_sharded_train_step
+     must match make_train_step from the same parameters (loss rel 1e-5,
+     every gradient within 1e-4 of its max |g|); (b) in phase 10 (b)'s
+     gloo world, the same on each rank, each image >= 35 dB against the
+     rank's single-device render, band_occupancy equal to its count in
+     numpy and on both ranks, both ranks' parameters equal after the step,
+     and scan, all-to-all, all-gather and all-reduce bytes sent.  Each
+     call's K5 / K6 launches (2 / 0 a sharded_render, 1 / 0 a tile render,
+     1 / 1 a step) are counted on its first call; its second call is timed
+     by CUDA events.
 
 The line before the last two is a JSON object listing every ported kernel;
 then the card's name and power limit from nvidia-smi; the last line is
@@ -212,6 +228,10 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # phase 10: the backend of its one-rank group, the ranks of its gloo world
 # on one card, and that world's ply -> sog scene (points, level)
 MD_BACKEND, MD_WORLD, MD_SOG_N, MD_SOG_LEVEL = "nccl", 2, 200_000, 1
+# phase 11: the least PSNR of a multi-device image against one device's
+# (JAX's own bar), and the bars of a sharded training step against one
+# device's: the loss (relative) and every gradient (of its max |g|)
+MD_RENDER_DB, MD_LOSS_REL, MD_GRAD_REL = 35.0, 1e-5, 1e-4
 
 
 def log(msg):
@@ -1943,11 +1963,12 @@ def md_chunked_input():
     return sog_rows(SOG_N, SOG_D, seed=11), SOG_CHUNKS, K2_KS[0]
 
 
-def phase_multidevice_one_rank(sor, km, smi, sor_pos):
+def phase_multidevice_one_rank(sor, km, smi, sor_pos, render_kw):
     """Phase 10 (a): a one-rank MD_BACKEND (NCCL) group on the card; the
     sharded SOR, chunked K-Means and K-Means on its mesh against the
-    single-device calls.  Returns the results and the digests of the
-    single-device chunked fit."""
+    single-device calls; then phase 11 (a) in the same group.  Returns the
+    results, the digests of the single-device chunked fit and phase 11
+    (a)'s results."""
     import torch.distributed as dist
     from gsconverter_tpu_torch.ops.padding import PAD_POS, next_pow2, pad_rows
     from gsconverter_tpu_torch.parallel import distributed as pd
@@ -1994,6 +2015,7 @@ def phase_multidevice_one_rank(sor, km, smi, sor_pos):
                              labels_equal_plain=float((labels == km._assign_ref(x, c))
                                                       .float().mean()))
         del x, c, labels
+        rend = md_render_rank(mesh, render_kw)
     finally:
         dist.destroy_process_group()
     log(f"[multidevice] one-rank {out['backend']} group on {smi}: {json.dumps(out)}")
@@ -2007,7 +2029,14 @@ def phase_multidevice_one_rank(sor, km, smi, sor_pos):
         for key in kernels:
             if out[path]["launches"][key] < 1:
                 fail(f"phase 10's {path} never launched {key.upper()}")
-    return out, expect
+    log(f"[multidevice-render] one-rank {out['backend']} group on {smi}: {json.dumps(rend)}")
+    check_md_render("the one-rank group", rend)
+    if not rend["sharded_render"]["equal_single"]:
+        fail("at one rank sharded_render differs from render(bg=0)")
+    if rend["band_occupancy"]["occupancy"] != [[rend["in_front"]]]:
+        fail(f"at one rank band_occupancy is {rend['band_occupancy']['occupancy']}, not "
+             f"the {rend['in_front']} splats in front of the camera")
+    return out, expect, rend
 
 
 def md_worker(rank, world, root, cfg):
@@ -2065,17 +2094,19 @@ def md_worker(rank, world, root, cfg):
         out["chunked"] = dict(wall_s=wall, launches=kernel_counts(), bytes=dict(pd.BYTES),
                               sharded_calls=dict(calls), centroids=tensor_digest(c),
                               labels=tensor_digest(labels))
+        del x, c, labels
+        out["render"] = md_render_rank(mesh, cfg["render_kw"])
         with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_multidevice_gloo(smi, main_src, runs, expect):
+def phase_multidevice_gloo(smi, main_src, runs, expect, render_kw):
     """Phase 10 (b): MD_WORLD ranks over gloo on the one card (collectives
     staged through the host): config 2's 1M scene to .splat, a 200k-splat
     ply -> sog and config 3's chunked palette fit, each against its
-    single-process result."""
+    single-process result; then phase 11 (b) on the same ranks."""
     import pickle
 
     import torch.multiprocessing as mp
@@ -2088,9 +2119,10 @@ def phase_multidevice_gloo(smi, main_src, runs, expect):
     single = os.path.join(root, "single.sog")
     Converter(sog_src, single, "sog", device=DEVICE).run(compression_level=MD_SOG_LEVEL)
     sog_digest = file_digest(single)
-    cfg = dict(main_src=main_src, sog_src=sog_src, settings={
+    cfg = dict(main_src=main_src, sog_src=sog_src, render_kw=render_kw, settings={
         name: globals()[name] for name in ("DEVICE", "MAIN_FLAGS", "SOG_N", "SOG_D",
-                                           "SOG_CHUNKS", "K2_KS", "MD_SOG_LEVEL")})
+                                           "SOG_CHUNKS", "K2_KS", "MD_SOG_LEVEL", "RENDER_N",
+                                           "RENDER_H", "RENDER_W", "TRAIN_LR")})
     t0 = time.perf_counter()
     mp.spawn(md_worker, args=(MD_WORLD, root, cfg), nprocs=MD_WORLD, join=True)
     wall = time.perf_counter() - t0
@@ -2107,7 +2139,7 @@ def phase_multidevice_gloo(smi, main_src, runs, expect):
                    and rk["chunked"]["labels"] == expect["labels"] for rk in ranks),
                ranks=[{key: {f: v for f, v in rk[key].items()
                              if f not in ("sha256", "centroids", "labels")}
-                       for key in rk} for rk in ranks])
+                       for key in rk if key != "render"} for rk in ranks])
     log(f"[multidevice] {MD_WORLD} gloo ranks on {smi}: {json.dumps(out)}")
     if not out["splat_identical_to_phase4"]:
         fail("the gloo world's .splat differs from phase 4's")
@@ -2131,6 +2163,198 @@ def phase_multidevice_gloo(smi, main_src, runs, expect):
                 fail(f"rank {r} of phase 10's gloo world did not take the sharded "
                      f"{call} path on its {path} run: calls {rk[path]['sharded_calls']}, "
                      f"bytes {rk[path]['bytes']}")
+    rend = [rk["render"] for rk in ranks]
+    log(f"[multidevice-render] {MD_WORLD} gloo ranks on {smi}: {json.dumps(rend)}")
+    check_md_render_world(rend)
+    out["render"] = rend
+    return out
+
+
+def check_md_render_world(rend):
+    """Phase 11 (b)'s bars over the gloo ranks' ``md_render_rank`` results."""
+    for r, rr in enumerate(rend):
+        check_md_render(f"rank {r} of the gloo world", rr)
+        if rr["band_occupancy"]["occupancy"] != rr["band_occupancy"]["plain"]:
+            fail(f"rank {r}'s band_occupancy {rr['band_occupancy']['occupancy']} differs "
+                 f"from its plain count {rr['band_occupancy']['plain']}")
+        for key, wire in (("sharded_render", "scan"), ("sharded_render", "all_reduce"),
+                          ("sharded_render_tiles", "all_to_all"),
+                          ("sharded_render_tiles", "all_gather"), ("step", "all_reduce")):
+            if rr[key]["bytes"][wire] <= 0:
+                fail(f"rank {r}'s {key} sent no {wire} bytes: {rr[key]['bytes']}")
+    for key in ("band_occupancy", "step"):
+        field = "occupancy" if key == "band_occupancy" else "params_sha256"
+        if any(rr[key][field] != rend[0][key][field] for rr in rend):
+            fail(f"the gloo ranks' {key} results differ: {[rr[key][field] for rr in rend]}")
+
+
+# ------------------------------ phase 11: the multi-device renderer and step
+
+
+def md_render_scene():
+    """Phase 8's 1M-splat scene (seed 0) on the card and its camera."""
+    from gsconverter_tpu_torch.render import rasterizer as rz
+
+    cloud = render_bench_scene(RENDER_N).to_device(DEVICE)
+    cam = rz.Camera.look_at(eye=[0, 0, 5.0], target=[0, 0, 0], fov_deg=60.0,
+                            width=RENDER_W, height=RENDER_H)
+    return cloud, cam
+
+
+def md_render_kw():
+    """Phase 11's render settings: phase 8's windowed render with its
+    auto_budget's max_per_tile and max_global, and no band plan (a band
+    plan belongs to one image)."""
+    from gsconverter_tpu_torch.render import rasterizer as rz
+
+    cloud, cam = md_render_scene()
+    budget = rz.auto_budget(cloud, cam)
+    return dict(binning="windowed", block_m=RENDER_BM, max_per_tile=budget["max_per_tile"],
+                max_global=budget["max_global"])
+
+
+def plain_occupancy(proj, h, size):
+    """band_occupancy's matrix counted in numpy: each splat's clipped rows
+    y +- radius floor-divided into bands, by the chunk of rows it lies in."""
+    rows_per = h // size
+    y = proj["means2d"][:, 1].detach().cpu().numpy()
+    r = proj["radius"].detach().cpu().numpy()
+    front = proj["in_front"].cpu().numpy()
+    d0 = np.floor_divide(np.clip(y - r, 0, h - 1), rows_per).astype(np.int32)
+    d1 = np.floor_divide(np.clip(y + r, 0, h - 1), rows_per).astype(np.int32)
+    src = np.arange(y.shape[0]) // (y.shape[0] // size)
+    occ = np.zeros((size, size), np.int64)
+    for j in range(size):
+        np.add.at(occ[:, j], src[front & (d0 <= j) & (d1 >= j)], 1)
+    return occ.tolist()
+
+
+def md_render_rank(mesh, kw):
+    """Phase 11 on one rank of ``mesh``: sharded_render, band_occupancy
+    and sharded_render_tiles of phase 8's scene, and one sharded training
+    step beside make_train_step's from the same parameters.  Each call's
+    K5 / K6 launches and bytes are counted over its first call, whose host
+    time is taken; the second call is timed by CUDA events.  Images are
+    held against this rank's single-device render (PSNR, max |diff|)."""
+    from gsconverter_tpu_torch.parallel import distributed as pd
+    from gsconverter_tpu_torch.parallel.sharding import pad_cloud
+    from gsconverter_tpu_torch.parallel.train import make_sharded_train_step
+    from gsconverter_tpu_torch.render import rasterizer as rz
+    from gsconverter_tpu_torch.render import train
+    from gsconverter_tpu_torch.render.project import project_gaussians
+
+    cloud, cam = md_render_scene()
+    cloud, _ = pad_cloud(cloud, mesh.size)
+    with torch.no_grad():
+        single = rz.render(cloud, cam, **kw)
+    out = dict(world=mesh.size, rank=mesh.rank, kw=kw)
+
+    def counted(fn):
+        rz.LAUNCHES.update(dict.fromkeys(rz.LAUNCHES, 0))
+        pd.BYTES.update(dict.fromkeys(pd.BYTES, 0))
+        res, first_s = timed(fn)
+        entry = dict(launches=dict(rz.LAUNCHES), bytes=dict(pd.BYTES), first_s=first_s)
+        return res, entry
+
+    def second_ms(fn):
+        sync()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    def against_single(img):
+        return dict(psnr_db=float(rz.psnr(img, single)),
+                    max_abs=float((img - single).abs().max()),
+                    shape=list(img.shape), finite=bool(torch.isfinite(img).all()))
+
+    with torch.no_grad():
+        fn = lambda: pd.sharded_render(cloud, cam, mesh, **kw)  # noqa: E731
+        img, e = counted(fn)
+        e.update(against_single(img), equal_single=bool(torch.equal(img, single)),
+                 second_ms=second_ms(fn))
+        out["sharded_render"] = e
+        fn = lambda: pd.band_occupancy(cloud, cam, mesh)  # noqa: E731
+        occ, e = counted(fn)
+        proj = project_gaussians(cloud.pos, cloud.log_scale, cloud.quat,
+                                 cam.to(cloud.pos.device))
+        e.update(occupancy=occ.tolist(), plain=plain_occupancy(proj, cam.height, mesh.size),
+                 second_ms=second_ms(fn))
+        out["in_front"] = int(proj["in_front"].sum())
+        out["band_occupancy"] = e
+        del proj
+        fn = lambda: pd.sharded_render_tiles(cloud, cam, mesh, **kw)  # noqa: E731
+        img, e = counted(fn)
+        e.update(against_single(img), second_ms=second_ms(fn))
+        out["sharded_render_tiles"] = e
+        del img
+
+    # one step towards the image, from the perturbed scene, on one device
+    # and over the mesh
+    base = cloud.replace(sh_dc=cloud.sh_dc + 0.2, opacity=cloud.opacity - 0.3)
+
+    def fresh():
+        params = {k: getattr(base, k).detach().clone().requires_grad_(True)
+                  for k in train.TRAINABLE}
+        opt = torch.optim.Adam(list(params.values()), lr=TRAIN_LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        return params, opt
+
+    p1, o1 = fresh()
+    loss1 = float(train.make_train_step(base, cam, o1, p1, **kw)(single))
+    g1 = {k: v.grad for k, v in p1.items()}
+    del p1, o1
+    p2, o2 = fresh()
+    step = make_sharded_train_step(base, cam, o2, p2, mesh, **kw)
+    loss2, e = counted(lambda: float(step(single)))
+    grad_rel = {}
+    for k, v in p2.items():
+        if (v.grad is None) != (g1[k] is None):
+            fail(f"the sharded step's {k} gradient is {v.grad is None and 'missing' or 'there'}"
+                 f", make_train_step's is not")
+        if v.grad is not None:
+            grad_rel[k] = float((v.grad - g1[k]).abs().max()
+                                / g1[k].abs().max().clamp_min(1e-30))
+    digest = hashlib.sha256(b"".join(v.detach().cpu().numpy().tobytes()
+                                     for v in p2.values())).hexdigest()
+    e.update(loss=loss2, single_loss=loss1, loss_rel=abs(loss2 - loss1) / max(abs(loss1), 1e-30),
+             grad_rel_of_max=grad_rel, params_sha256=digest,
+             second_ms=second_ms(lambda: step(single)))
+    out["step"] = e
+    del p2, o2, g1, base, single
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_md_render(who, r):
+    """Phase 11's bars for one rank's ``md_render_rank`` results."""
+    for key in ("sharded_render", "sharded_render_tiles"):
+        e = r[key]
+        if not e["finite"] or e["shape"] != [RENDER_H, RENDER_W, 3]:
+            fail(f"{who}: {key} gave a non-finite image or one of shape {e['shape']}")
+        if e["psnr_db"] < MD_RENDER_DB:
+            fail(f"{who}: {key} reaches {e['psnr_db']:.2f} dB against one device's render, "
+                 f"not {MD_RENDER_DB}")
+    st = r["step"]
+    if st["loss_rel"] > MD_LOSS_REL or max(st["grad_rel_of_max"].values()) > MD_GRAD_REL:
+        fail(f"{who}: the sharded step's loss ({st['loss_rel']:.3g} rel) or gradients "
+             f"({st['grad_rel_of_max']}) differ from make_train_step's")
+    for key, want in (("sharded_render", {"composite_fwd": 2, "composite_bwd": 0}),
+                      ("band_occupancy", {"composite_fwd": 0, "composite_bwd": 0}),
+                      ("sharded_render_tiles", {"composite_fwd": 1, "composite_bwd": 0}),
+                      ("step", {"composite_fwd": 1, "composite_bwd": 1})):
+        if r[key]["launches"] != want:
+            fail(f"{who}: {key} launched {r[key]['launches']}, not {want}")
+
+
+def md_render_launches(key, one, gloo):
+    """K5's or K6's launches on each call of phase 11, by rank."""
+    calls = ("sharded_render", "sharded_render_tiles", "step")
+    out = {f"one_rank.{c}": one[c]["launches"][key] for c in calls}
+    for r, rr in enumerate(gloo):
+        out.update({f"gloo_rank{r}.{c}": rr[c]["launches"][key] for c in calls})
     return out
 
 
@@ -2187,9 +2411,13 @@ def main():
     ckpt = phase_checkpoint(sor, smi, main_src, runs)
     # 10. the multi-device layer: a one-rank NCCL group, then gloo ranks on
     # the one card
+    # 11. the multi-device renderer and training step, in phase 10's group
+    # and gloo world
     real = spos[:, 0] < sor._D_VALID_MAX
-    md_one, md_expect = phase_multidevice_one_rank(sor, km, smi, spos[real].contiguous())
-    md_gloo = phase_multidevice_gloo(smi, main_src, runs, md_expect)
+    render_kw = md_render_kw()
+    md_one, md_expect, md_render_one = phase_multidevice_one_rank(
+        sor, km, smi, spos[real].contiguous(), render_kw)
+    md_gloo = phase_multidevice_gloo(smi, main_src, runs, md_expect, render_kw)
     os.unlink(main_src)
     small_same = phase_small_agreement(sor)
     # 5. K1 on the main path's own input
@@ -2209,7 +2437,7 @@ def main():
     # 8. config 4: the renderer
     rend = phase_render(smi)
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    log(f"[done] phases 3-10 in {time.perf_counter() - t_all:.1f} s; "
+    log(f"[done] phases 3-11 in {time.perf_counter() - t_all:.1f} s; "
         f"small scene byte-identical={small_same}; "
         f"small .sog cuda/cpu mse {small_sog['mse_cuda']:.6g}/{small_sog['mse_cpu']:.6g}")
 
@@ -2338,6 +2566,9 @@ def main():
             "library_ms": None,  # no single PyTorch call composites tiles
             "per_band_ms": [b[f"{key}_ms"] for b in bands],
             "shape": {"bands": band_shapes, "block_m": RENDER_BM},
+            "launches_multidevice": md_render_launches(
+                f"composite_{'fwd' if key == 'k5' else 'bwd'}", md_render_one,
+                md_gloo["render"]),
         })
     kernels[-2]["band_check"] = check
     for key, entry in zip(("k5", "k6"), kernels[-2:]):

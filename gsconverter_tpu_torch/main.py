@@ -24,7 +24,7 @@ import torch
 
 from . import __version__, config
 from .converter import EXT_MAP, VALID_FORMATS, Converter
-from .parallel.mesh import init_multihost
+from .parallel.mesh import init_multihost, multi_rank_mesh
 from .utils import ply as ply_io
 
 
@@ -261,17 +261,35 @@ def _main(parser: argparse.ArgumentParser, args: argparse.Namespace) -> int:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
-    # overwrite prompt (reference main.py:460-466)
-    if os.path.exists(args.output) and not args.force:
+    # overwrite prompt (reference main.py:460-466); under a mesh rank 0
+    # alone asks, and every rank takes its answer
+    mesh = multi_rank_mesh()
+    lead = mesh is None or mesh.rank == 0
+    proceed = True
+    if lead and os.path.exists(args.output) and not args.force:
         print(f"Warning: Output file '{args.output}' already exists.")
-        confirm = input("Overwrite? [y/N]: ").strip().lower()
-        if confirm != "y":
+        try:
+            confirm = input("Overwrite? [y/N]: ").strip().lower()
+        except EOFError:
+            if mesh is None:
+                raise
+            confirm = ""  # no answer: the other ranks must still hear one
+        proceed = confirm == "y"
+        if not proceed:
             print("Operation cancelled.")
-            return 0
+    if mesh is not None:
+        box = [proceed]
+        torch.distributed.broadcast_object_list(
+            box, group=mesh.group, group_src=0,
+            device=mesh.device if mesh.backend == "nccl" else None)
+        proceed = box[0]
+    if not proceed:
+        return 0
 
     try:
-        print("\n>>> SOURCE FILE INFO")
-        report_info(args.input)
+        if lead:
+            print("\n>>> SOURCE FILE INFO")
+            report_info(args.input)
 
         converter = Converter(args.input, args.output, args.target_format,
                               device=args.device)
@@ -295,8 +313,9 @@ def _main(parser: argparse.ArgumentParser, args: argparse.Namespace) -> int:
             maintain_extra_elements=args.extra_elements,
         )
 
-        print("\n>>> TARGET FILE INFO")
-        report_info(args.output)
+        if lead:
+            print("\n>>> TARGET FILE INFO")
+            report_info(args.output)
     except Exception as e:
         print(f"Error: {e}")
         if config.DEBUG:

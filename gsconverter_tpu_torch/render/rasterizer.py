@@ -483,12 +483,13 @@ def _leaves_on(cloud: SplatCloud, dev: torch.device) -> SplatCloud:
 
 
 def _launch_groups(n_tiles, tile_chunk, on_card, windowed, max_per_tile, n,
-                   tile_order, band_plan):
+                   tile_order, band_plan, span=None):
     """[(out_ids, render_ids, budget)] of int64 host arrays: one group per
     compositing call.  On the CPU the groups are ``tile_chunk`` tiles (JAX's
     chunks, pads included, so the chunk-wide exit matches); on the card a
     windowed band is one group (one K5/K6 launch), exact binning keeps
-    ``tile_chunk`` groups to bound its [tiles, N] selection."""
+    ``tile_chunk`` groups to bound its [tiles, N] selection.  ``span``
+    (t0, t1) takes tiles [t0, t1) only (no band plan)."""
     if band_plan is not None:
         order = (tile_order.cpu().numpy() if isinstance(tile_order, torch.Tensor)
                  else np.asarray(tile_order)).astype(np.int64)
@@ -497,11 +498,12 @@ def _launch_groups(n_tiles, tile_chunk, on_card, windowed, max_per_tile, n,
             bands.append((order[off:off + nc * tile_chunk], min(int(mb), n)))
             off += nc * tile_chunk
     else:
-        chunks = -(-n_tiles // tile_chunk)
-        ids = np.arange(n_tiles, dtype=np.int64)
+        t0, t1 = (0, n_tiles) if span is None else span
+        chunks = -(-(t1 - t0) // tile_chunk)
+        ids = np.arange(t0, t1, dtype=np.int64)
         if not on_card:
             # JAX pads the last chunk with tile 0 (rendered, then dropped)
-            ids = np.concatenate([ids, np.full(chunks * tile_chunk - n_tiles, n_tiles)])
+            ids = np.concatenate([ids, np.full(chunks * tile_chunk - (t1 - t0), n_tiles)])
         bands = [(ids, max_per_tile)]
     groups = []
     for ids, budget in bands:
@@ -532,6 +534,7 @@ def render(
     max_mid: int = 16384,
     tile_order=None,
     band_plan: tuple | None = None,
+    rows: tuple[int, int] | None = None,
     device=None,
 ) -> torch.Tensor:
     """Render [H,W,3] linear-RGB image. Differentiable w.r.t. all splat params.
@@ -560,6 +563,12 @@ def render(
     ids, each band padded to a multiple of ``tile_chunk`` with the sentinel
     ``n_tiles``.
 
+    ``rows=(r0, r1)`` (multiples of 16, no band plan) composites only the
+    tiles of image rows [r0, r1) and returns those rows [r1 - r0, W, 3]:
+    the projection and binning stay the whole image's, so each tile gets
+    the candidates it gets in the whole image (a band camera's frustum
+    clamp would move the splats' footprints).
+
     Runs where the cloud's tensors live; a host cloud (numpy leaves) goes
     to ``resolve_device(device)``, the card unless ``device="cpu"``.  On
     the card each band's compositing is one launch of K5 (and of K6 in the
@@ -570,6 +579,8 @@ def render(
         raise ValueError(f"binning must be 'windowed' or 'exact', got {binning!r}")
     if band_plan is not None and (binning != "windowed" or tile_order is None):
         raise ValueError("band_plan requires windowed binning + tile_order")
+    if rows is not None and band_plan is not None:
+        raise ValueError("rows and band_plan do not combine")
     dev = _render_device(cloud, device)
     cl = _leaves_on(cloud, dev)
     cam = cam.to(dev)
@@ -578,6 +589,10 @@ def render(
         raise ValueError("image dims must be multiples of 16")
     tw, th = w // TILE, h // TILE
     n_tiles = tw * th
+    r0, r1 = (0, h) if rows is None else (int(rows[0]), int(rows[1]))
+    if r0 % TILE or r1 % TILE or not 0 <= r0 < r1 <= h:
+        raise ValueError(f"rows must be multiples of {TILE} within [0, {h}], got {rows}")
+    span = (r0 // TILE * tw, r1 // TILE * tw)
     n = cl.pos.shape[0]
     max_per_tile = min(max_per_tile, n)
     bg = (torch.zeros(3, device=dev) if bg is None
@@ -653,15 +668,16 @@ def render(
     out_ids, tiles = [], []
     for ids_out, ids_render, budget in _launch_groups(
             n_tiles, tile_chunk, on_card, binning == "windowed", max_per_tile, n,
-            tile_order, band_plan):
+            tile_order, band_plan, span):
         if len(ids_render):
             tiles.append(bin_and_render(torch.from_numpy(ids_render).to(dev), budget))
             out_ids.append(torch.from_numpy(ids_out).to(dev))
     out = torch.zeros(n_tiles + 1, TILE, TILE, 3, dtype=torch.float32, device=dev)
     # pad entries (id == n_tiles) land in the dropped extra row
     out = out.index_put((torch.cat(out_ids),), torch.cat(tiles))
-    img = out[:n_tiles].reshape(th, tw, TILE, TILE, 3).permute(0, 2, 1, 3, 4)
-    return img.reshape(h, w, 3)
+    band_th = (r1 - r0) // TILE
+    img = out[span[0]:span[1]].reshape(band_th, tw, TILE, TILE, 3).permute(0, 2, 1, 3, 4)
+    return img.reshape(r1 - r0, w, 3)
 
 
 # ------------------------------------------------------- budget planning

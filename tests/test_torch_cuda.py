@@ -779,6 +779,66 @@ def test_fit_on_card_reduces_loss(card):
     assert losses[-1] < losses[0] * 0.5
 
 
+# ------------------------------------------------ the multi-device renderer
+
+
+def test_one_rank_sharded_render_on_card_equals_render(card):
+    """A mesh of one rank (no group): sharded_render is render(bg=0), two
+    K5 launches (its chunk, and its chunk as white splats); a band of
+    render(rows=) is that band of the whole image; the tile-sharded image
+    is within JAX's bar."""
+    from gsconverter_tpu_torch.parallel import distributed as pd
+    from gsconverter_tpu_torch.parallel.mesh import make_mesh
+
+    cloud, cam = _render_scene()
+    mesh = make_mesh(device=card)
+    kw = dict(max_per_tile=1024, max_global=64, block_m=64)
+    gcloud = cloud.to_device(card)
+    whole = rz.render(gcloud, cam, bg=torch.zeros(3, device=card), **kw)
+    before = rz.LAUNCHES["composite_fwd"]
+    img = pd.sharded_render(gcloud, cam, mesh, **kw)
+    assert rz.LAUNCHES["composite_fwd"] == before + 2
+    assert torch.equal(img, whole)
+    assert torch.equal(rz.render(gcloud, cam, rows=(16, 48), **kw), whole[16:48])
+    assert float(rz.psnr(pd.sharded_render_tiles(gcloud, cam, mesh, **kw), whole)) > 35.0
+
+
+def test_one_rank_sharded_step_on_card_matches_train_step(card):
+    """One sharded training step at one rank against make_train_step from
+    the same parameters: one K5 and one K6 launch, the loss within rel
+    1e-5, every gradient within 1e-4 of its max |g| (index_add_ sums by
+    atomics on the card)."""
+    from gsconverter_tpu_torch.parallel.mesh import make_mesh
+    from gsconverter_tpu_torch.parallel.train import make_sharded_train_step
+    from gsconverter_tpu_torch.render import train
+
+    cloud, cam = _render_scene(n=2_000, seed=3)
+    base = cloud.to_device(card)
+    target = rz.render(base, cam, max_per_tile=256)
+    perturbed = base.replace(sh_dc=base.sh_dc + 0.3, opacity=base.opacity - 0.5)
+
+    def one_step(make):
+        params = {k: getattr(perturbed, k).clone().requires_grad_(True)
+                  for k in train.TRAINABLE}
+        opt = torch.optim.Adam(list(params.values()), lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
+        loss = float(make(opt, params)(target))
+        return loss, {k: v.grad for k, v in params.items()}
+
+    loss1, g1 = one_step(lambda o, p: train.make_train_step(perturbed, cam, o, p,
+                                                            max_per_tile=256))
+    before = dict(rz.LAUNCHES)
+    loss2, g2 = one_step(lambda o, p: make_sharded_train_step(
+        perturbed, cam, o, p, make_mesh(device=card), max_per_tile=256))
+    torch.cuda.synchronize()
+    assert rz.LAUNCHES["composite_fwd"] == before["composite_fwd"] + 1
+    assert rz.LAUNCHES["composite_bwd"] == before["composite_bwd"] + 1
+    assert abs(loss2 - loss1) <= 1e-5 * abs(loss1)
+    for k in train.TRAINABLE:
+        assert (g1[k] is None) == (g2[k] is None), k
+        if g1[k] is not None:
+            assert _field_err(g2[k], g1[k]) <= 1e-4, k
+
+
 # ------------------------------------------------- the device-resident path
 
 

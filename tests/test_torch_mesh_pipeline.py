@@ -142,3 +142,17 @@ def test_converter_checkpoint_and_resume_under_mesh(worlds):
     # the run and its resume write the one-process .splat's bytes
     assert r0["ckpt"] == r0["splat"][1]
     assert all(res[r]["resume_sor_calls"] == 0 for r in range(2))
+
+
+def test_cli_overwrite_prompt_runs_on_rank0_alone(worlds):
+    """Under a mesh of two ranks, only rank 0 asks; every rank takes its
+    answer (no answer, an EOF, cancels) and returns the same code; the
+    source and target info print once."""
+    res = worlds[2]
+    for answer, converted in (("n", False), ("y", True), ("eof", False)):
+        r0, r1 = res[0][f"cli_{answer}"], res[1][f"cli_{answer}"]
+        assert r0["prompts"] == ["Overwrite? [y/N]: "] and r1["prompts"] == [], answer
+        assert r0["rc"] == r1["rc"] == 0, answer
+        assert (r0["size"] > 0) == converted and r1["size"] == r0["size"], answer
+        assert (r0["source_info"], r1["source_info"]) == ((1, 0) if converted else (0, 0))
+        assert (r0["target_info"], r1["target_info"]) == ((1, 0) if converted else (0, 0))

@@ -316,10 +316,100 @@ def pipeline_scenario(mesh, inp, work) -> dict:
     if mesh.rank == 0:
         res["ckpt"] = _digest(first)
     mesh.barrier()
+    res.update(_cli_over_existing_output(mesh, src, work))
     return res
 
 
-SCENARIOS = {"parallel": parallel_scenario, "pipeline": pipeline_scenario}
+def _cli_over_existing_output(mesh, src, work) -> dict:
+    """The CLI converting onto an existing file with each answer to its
+    overwrite prompt (an EOF: no answer): who prompted, what each rank
+    returned and printed, and the file's size after."""
+    import builtins
+    import contextlib
+    import io
+
+    from gsconverter_tpu_torch import main as cli
+
+    out = {}
+    path = os.path.join(work, "cli.splat")
+    for answer in ("n", "y", "eof"):
+        if mesh.rank == 0:
+            open(path, "wb").close()
+        mesh.barrier()
+        prompts = []
+
+        def fake_input(prompt=""):
+            prompts.append(prompt)
+            if answer == "eof":
+                raise EOFError
+            return answer
+        orig, builtins.input = builtins.input, fake_input
+        text = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(["-i", src, "-o", path, "-f", "splat", "--device", "cpu"])
+        finally:
+            builtins.input = orig
+        mesh.barrier()
+        out[f"cli_{answer}"] = dict(rc=rc, prompts=prompts, size=os.path.getsize(path),
+                                    source_info=text.getvalue().count(">>> SOURCE FILE INFO"),
+                                    target_info=text.getvalue().count(">>> TARGET FILE INFO"))
+        mesh.barrier()
+    return out
+
+
+def render_scenario(mesh, inp, work) -> dict:
+    """The depth- and tile-sharded renders, the band occupancy, the sharded
+    training step beside one device's, and ``dryrun_multichip``."""
+    import contextlib
+    import io
+
+    from gsconverter_tpu_torch.parallel import distributed as pd
+    from gsconverter_tpu_torch.parallel import train as ptrain
+    from gsconverter_tpu_torch.render import train as rtrain
+
+    res = {}
+    cloud, cam, kw = inp["render"]
+    res["render"] = pd.sharded_render(_cloud(cloud), cam, mesh, **kw).numpy()
+    for name, (cloud, cam, budget, kw) in inp["tiles"].items():
+        pd.BYTES.update(dict.fromkeys(pd.BYTES, 0))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            img = pd.sharded_render_tiles(_cloud(cloud), cam, mesh, budget=budget, **kw)
+        res[f"tiles_{name}"] = (img.numpy(), out.getvalue(), dict(pd.BYTES))
+    for name, (cloud, cam) in inp["occupancy"].items():
+        res[f"occupancy_{name}"] = pd.band_occupancy(_cloud(cloud), cam, mesh).numpy()
+    cloud, cam = inp["rows_split"]
+    try:
+        pd.sharded_render_tiles(_cloud(cloud), cam, mesh)
+        res["rows_split"] = None
+    except ValueError as e:
+        res["rows_split"] = str(e)
+
+    # one sharded step of the tiny scene, and the same step on one device
+    cloud, cam = ptrain.tiny_scene(**inp["step"])
+    base = cloud.to_device("cpu")
+    target = torch.zeros(cam.height, cam.width, 3)
+    kw = dict(max_per_tile=64, tile_chunk=2)
+    for label, make in (
+            ("sharded", lambda o, p: ptrain.make_sharded_train_step(base, cam, o, p, mesh, **kw)),
+            ("single", lambda o, p: rtrain.make_train_step(base, cam, o, p, **kw))):
+        params = {k: getattr(base, k).clone().requires_grad_(True) for k in rtrain.TRAINABLE}
+        opt = torch.optim.Adam(list(params.values()), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+        pd.BYTES.update(dict.fromkeys(pd.BYTES, 0))
+        loss = float(make(opt, params)(target))
+        res[f"step_{label}"] = dict(
+            loss=loss, bytes=dict(pd.BYTES),
+            grads={k: v.grad.numpy().copy() for k, v in params.items()},
+            params={k: v.detach().numpy().copy() for k, v in params.items()},
+            digest=hashlib.sha256(b"".join(v.detach().numpy().tobytes()
+                                           for v in params.values())).hexdigest())
+    res["dryrun"] = ptrain.dryrun_multichip(mesh)
+    return res
+
+
+SCENARIOS = {"parallel": parallel_scenario, "pipeline": pipeline_scenario,
+             "render": render_scenario}
 
 
 def cloud_leaves(cloud) -> dict:
