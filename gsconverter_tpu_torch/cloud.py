@@ -35,7 +35,8 @@ import torch
 
 from .config import resolve_device
 from .ops.compaction import compact as _compact_on_device
-from .utils.transfer import cloud_is_host, to_host
+from .utils.log import span
+from .utils.transfer import cloud_is_host, synchronize, to_host, upload
 
 # Zeroth spherical-harmonic basis constant (reference data_processor.py:307).
 SH_C0 = 0.28209479177387814
@@ -284,12 +285,13 @@ class SplatCloud:
     def device(self, device: str | torch.device | None = None) -> "SplatCloud":
         """All leaves as tensors on ``device``: the card unless the caller
         passes ``device="cpu"`` (``config.resolve_device``)."""
-        return self.to_device(resolve_device(device))
+        with span("upload"):
+            return self.to_device(resolve_device(device))
 
     def block_until_ready(self) -> "SplatCloud":
         """Wait for the work queued on the cloud's device (host: no-op)."""
-        if isinstance(self.pos, torch.Tensor) and self.pos.device.type == "cuda":
-            torch.cuda.synchronize(self.pos.device)
+        if isinstance(self.pos, torch.Tensor):
+            synchronize(self.pos.device)
         return self
 
     def to_device(self, device: str | torch.device) -> "SplatCloud":
@@ -297,11 +299,7 @@ class SplatCloud:
         dev = torch.device(device)
 
         def conv(a):
-            if a is None:
-                return None
-            if isinstance(a, torch.Tensor):
-                return a.to(dev)
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return None if a is None else upload(a, dev)
 
         return self._rebuild(
             {name: conv(a) for name, a in self._named_leaves().items()})

@@ -24,6 +24,10 @@ device), every rank runs the same conversion on the whole cloud; the
 device stages run on the mesh's device, SOR and the K-Means behind SOG
 take their sharded paths (each rank's share of the kernel work), and rank
 0 alone writes the output while the others wait at a barrier.
+
+Tracing (``utils/log.py``): ``run`` is the span ``convert`` and
+``write_processed`` the span ``export``, each the root of its stages
+(``StageTimer``'s) and of the writer's spans.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from .ops import filters, sh
 from .parallel.mesh import multi_rank_mesh
 from .utils import checkpoint
 from .utils import ply as ply_io
-from .utils.log import StageTimer, debug_print, progress, status_print
+from .utils.log import StageTimer, debug_print, progress, span, status_print
 from .utils.validate import validate_cloud
 
 VALID_FORMATS = ["3dgs", "cc", "parquet", "splat", "ksplat", "spz", "sog", "compressed_ply"]
@@ -126,7 +130,8 @@ class Converter:
         if kwargs.get("timing"):
             config_mod.TIMING = True
         try:
-            return self._run_inner(**kwargs)
+            with span("convert"):
+                return self._run_inner(**kwargs)
         finally:
             config_mod.TIMING = prev_timing
 
@@ -380,20 +385,21 @@ class Converter:
         reader) takes the content's degree; the JAX package's
         ``write_processed`` keeps the metadata and writes its zero bands.
         """
-        opts = _opts_from_kwargs(kwargs)
-        if source_handler is not None:
-            self.source_handler = source_handler
-        source_deg = sh.detect_active_degree(cloud)
-        final_deg = min(
-            source_deg,
-            FORMAT_MAX_SH.get(self.target_format, 3),
-            3 if opts.sh_level is None else int(opts.sh_level),
-        )
-        if final_deg < source_deg:
-            cloud = sh.cap_degree(cloud, final_deg)
-        else:
-            cloud = cloud.replace(active_sh_degree=min(cloud.active_sh_degree, final_deg))
-        out = self._finalize_write(cloud, opts, kwargs)
+        with span("export"):
+            opts = _opts_from_kwargs(kwargs)
+            if source_handler is not None:
+                self.source_handler = source_handler
+            source_deg = sh.detect_active_degree(cloud)
+            final_deg = min(
+                source_deg,
+                FORMAT_MAX_SH.get(self.target_format, 3),
+                3 if opts.sh_level is None else int(opts.sh_level),
+            )
+            if final_deg < source_deg:
+                cloud = sh.cap_degree(cloud, final_deg)
+            else:
+                cloud = cloud.replace(active_sh_degree=min(cloud.active_sh_degree, final_deg))
+            out = self._finalize_write(cloud, opts, kwargs)
         status_print(f"Conversion completed: Saved to {self.output_path}")
         return out
 

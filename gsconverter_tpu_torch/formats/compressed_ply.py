@@ -13,7 +13,8 @@ host cloud encodes in numpy.  A tensor cloud encodes where its tensors live
 ``np.lexsort``'s order), and only the packed words and chunk bounds come to
 the host; ``sigmoid`` may differ from numpy's by an ulp, moving an alpha
 byte by one step.  An empty cloud raises ``ValueError``: the format's
-chunk bounds need at least one splat.
+chunk bounds need at least one splat.  A write is two spans
+(``utils/log.py``): ``encode`` (the packing and its readbacks) and ``file``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..cloud import COEFFS_FOR_DEGREE, SH_C0, SplatCloud, covering_degree_for_di
 from ..ops import quant
 from ..ops.sh import effective_sh_degree
 from ..utils import ply
-from ..utils.log import debug_print, status_print
+from ..utils.log import debug_print, span, status_print
 from ..utils.transfer import to_host
 from .base import BaseFormat, register
 from .ply_gs import Ply3DGSFormat
@@ -213,38 +214,40 @@ class CompressedPlyFormat(BaseFormat):
         if n == 0:
             raise ValueError("compressed PLY: cannot write an empty cloud "
                              "(its chunk bounds need at least one splat)")
-        order, *packed = _encode(c.pos, c.log_scale, c.quat, c.opacity, c.sh_dc)
-        chunk_bounds, p_pos, p_rot, p_scl, p_col = map(to_host, packed)
-        nc = len(chunk_bounds)
-        chunk_arr = np.zeros(nc, dtype=[(f, "<f4") for f in _CHUNK_FIELDS])
-        for i, f in enumerate(_CHUNK_FIELDS):
-            chunk_arr[f] = chunk_bounds[:, i]
-        vert_arr = np.zeros(
-            n,
-            dtype=[("packed_position", "<u4"), ("packed_rotation", "<u4"),
-                   ("packed_scale", "<u4"), ("packed_color", "<u4")],
-        )
-        vert_arr["packed_position"] = p_pos
-        vert_arr["packed_rotation"] = p_rot
-        vert_arr["packed_scale"] = p_scl
-        vert_arr["packed_color"] = p_col
-        elements = [ply.PlyElement("chunk", chunk_arr), ply.PlyElement("vertex", vert_arr)]
+        with span("encode"):
+            order, *packed = _encode(c.pos, c.log_scale, c.quat, c.opacity, c.sh_dc)
+            chunk_bounds, p_pos, p_rot, p_scl, p_col = map(to_host, packed)
+            nc = len(chunk_bounds)
+            chunk_arr = np.zeros(nc, dtype=[(f, "<f4") for f in _CHUNK_FIELDS])
+            for i, f in enumerate(_CHUNK_FIELDS):
+                chunk_arr[f] = chunk_bounds[:, i]
+            vert_arr = np.zeros(
+                n,
+                dtype=[("packed_position", "<u4"), ("packed_rotation", "<u4"),
+                       ("packed_scale", "<u4"), ("packed_color", "<u4")],
+            )
+            vert_arr["packed_position"] = p_pos
+            vert_arr["packed_rotation"] = p_rot
+            vert_arr["packed_scale"] = p_scl
+            vert_arr["packed_color"] = p_col
+            elements = [ply.PlyElement("chunk", chunk_arr), ply.PlyElement("vertex", vert_arr)]
 
-        n_coeffs = COEFFS_FOR_DEGREE[effective_sh_degree(c, kwargs, 3)]
-        if n_coeffs > 0:
-            # degree-packed channel-major (stride = per-channel dim), the
-            # splat-transform convention
-            flat = c.sh_rest[:, :, :n_coeffs // 3].reshape(n, n_coeffs)[order]
-            if c.is_host:
-                q = np.clip((flat / 8.0 + 0.5) * 256.0, 0, 255).astype(np.uint8)
-            else:
-                # x / 8 and x * 0.125 are the same f32 (a power of two)
-                q = torch.clamp((flat * 0.125 + 0.5) * 256.0, 0, 255).to(
-                    torch.uint8).cpu().numpy()
-            sh_arr = np.zeros(n, dtype=[(f"f_rest_{i}", "u1") for i in range(n_coeffs)])
-            for i in range(n_coeffs):
-                sh_arr[f"f_rest_{i}"] = q[:, i]
-            elements.append(ply.PlyElement("sh", sh_arr))
+            n_coeffs = COEFFS_FOR_DEGREE[effective_sh_degree(c, kwargs, 3)]
+            if n_coeffs > 0:
+                # degree-packed channel-major (stride = per-channel dim), the
+                # splat-transform convention
+                flat = c.sh_rest[:, :, :n_coeffs // 3].reshape(n, n_coeffs)[order]
+                if c.is_host:
+                    q = np.clip((flat / 8.0 + 0.5) * 256.0, 0, 255).astype(np.uint8)
+                else:
+                    # x / 8 and x * 0.125 are the same f32 (a power of two)
+                    q = to_host(torch.clamp((flat * 0.125 + 0.5) * 256.0, 0, 255)
+                                .to(torch.uint8))
+                sh_arr = np.zeros(n, dtype=[(f"f_rest_{i}", "u1") for i in range(n_coeffs)])
+                for i in range(n_coeffs):
+                    sh_arr[f"f_rest_{i}"] = q[:, i]
+                elements.append(ply.PlyElement("sh", sh_arr))
 
-        ply.write(path, elements)
+        with span("file"):
+            ply.write(path, elements)
         status_print(f"Compressed PLY write completed. {n} points in {nc} chunks.")

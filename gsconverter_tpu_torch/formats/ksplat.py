@@ -15,7 +15,9 @@ computes the Morton order, bucket centres, block size, quantized positions,
 colours and the rest of each chunk's record where its tensors live, and
 only the record's fields come to the host.  ``exp`` and ``sigmoid`` may
 differ from numpy's by an ulp: a level-0 scale by an ulp, an alpha byte or
-an f16 scale by one step.
+an f16 scale by one step.  A write's spans (``utils/log.py``): ``encode``
+(the order, centres, block size and headers, then each chunk's records and
+their readbacks) and ``file`` (the headers, then each chunk).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ..cloud import SH_C0, SplatCloud
 from ..ops import quant
 from ..ops.sh import effective_sh_degree
-from ..utils.log import debug_print, status_print
+from ..utils.log import debug_print, span, status_print
 from ..utils.transfer import to_host
 from .base import BaseFormat, register
 from .compressed_ply import morton_order
@@ -121,7 +123,7 @@ def _encode_rows(c: SplatCloud, s: int, e: int, comp: int, centers, bucket_size:
             f["sh"] = shc
     if host:
         return f
-    out = {k: v.cpu().numpy() for k, v in f.items()}
+    out = {k: to_host(v) for k, v in f.items()}
     if comp:
         out["pos"] = out["pos"].astype(np.uint16)
         out["rot"] = out["rot"].astype(np.uint16)
@@ -252,88 +254,92 @@ class KSplatFormat(BaseFormat):
         bucket_size = int(kwargs.get("bucket_size") or 256)
         block_size = kwargs.get("block_size")
 
-        c = cloud
-        if comp >= 1 and c.n:
-            # Morton order, so the buckets of consecutive rows are tight
-            c = c.select(morton_order(c.pos))
-        n = c.n
+        with span("encode"):
+            c = cloud
+            if comp >= 1 and c.n:
+                # Morton order, so the buckets of consecutive rows are tight
+                c = c.select(morton_order(c.pos))
+            n = c.n
 
-        centers = None
-        if comp >= 1:
-            centers = _bucket_centers(c.pos, bucket_size)
-        if block_size is None:
+            centers = None
             if comp >= 1:
-                # the smallest block in which no bucket-relative offset
-                # saturates (the reference hardcodes 5.0 and clips; the
-                # section header carries the value)
-                if not n:
-                    max_off = 0.0
-                elif c.is_host:
-                    cidx = np.arange(n) // bucket_size
-                    max_off = float(np.max(np.abs(c.pos - centers[cidx])))
+                centers = _bucket_centers(c.pos, bucket_size)
+            if block_size is None:
+                if comp >= 1:
+                    # the smallest block in which no bucket-relative offset
+                    # saturates (the reference hardcodes 5.0 and clips; the
+                    # section header carries the value)
+                    if not n:
+                        max_off = 0.0
+                    elif c.is_host:
+                        cidx = np.arange(n) // bucket_size
+                        max_off = float(np.max(np.abs(c.pos - centers[cidx])))
+                    else:
+                        cidx = torch.arange(n, device=c.pos.device) // bucket_size
+                        max_off = float(to_host((c.pos - centers[cidx]).abs().amax()))
+                    block_size = max(2.0 * max_off * 1.001, 1e-3)
                 else:
-                    cidx = torch.arange(n, device=c.pos.device) // bucket_size
-                    max_off = float((c.pos - centers[cidx]).abs().amax())
-                block_size = max(2.0 * max_off * 1.001, 1e-3)
-            else:
-                block_size = 5.0
-        block_size = float(block_size)
+                    block_size = 5.0
+            block_size = float(block_size)
 
-        sh_degree = effective_sh_degree(c, kwargs, 2)
-        req = kwargs.get("sh_level")
-        if req is not None and int(req) < sh_degree:
-            sh_degree = int(req)
-        sh_count = _SH_COUNT[sh_degree]
-        sh_dim = sh_count // 3
-        min_sh, max_sh = -2.0, 2.0
+            sh_degree = effective_sh_degree(c, kwargs, 2)
+            req = kwargs.get("sh_level")
+            if req is not None and int(req) < sh_degree:
+                sh_degree = int(req)
+            sh_count = _SH_COUNT[sh_degree]
+            sh_dim = sh_count // 3
+            min_sh, max_sh = -2.0, 2.0
 
-        header = bytearray(HEADER_SIZE)
-        header[0], header[1] = MAGIC_MAJOR, MAGIC_MINOR
-        struct.pack_into("<I", header, 4, 1)
-        struct.pack_into("<I", header, 8, 1)
-        struct.pack_into("<I", header, 12, n)
-        struct.pack_into("<I", header, 16, n)
-        struct.pack_into("<H", header, 20, comp)
-        struct.pack_into("<f", header, 36, min_sh)
-        struct.pack_into("<f", header, 40, max_sh)
+            header = bytearray(HEADER_SIZE)
+            header[0], header[1] = MAGIC_MAJOR, MAGIC_MINOR
+            struct.pack_into("<I", header, 4, 1)
+            struct.pack_into("<I", header, 8, 1)
+            struct.pack_into("<I", header, 12, n)
+            struct.pack_into("<I", header, 16, n)
+            struct.pack_into("<H", header, 20, comp)
+            struct.pack_into("<f", header, 36, min_sh)
+            struct.pack_into("<f", header, 40, max_sh)
 
-        full_buckets = n // bucket_size
-        pfb = 1 if n % bucket_size else 0
-        bucket_count = full_buckets + pfb
-        rec = _record_dtype(comp, sh_count)
+            full_buckets = n // bucket_size
+            pfb = 1 if n % bucket_size else 0
+            bucket_count = full_buckets + pfb
+            rec = _record_dtype(comp, sh_count)
 
-        sec = bytearray(SECTION_HEADER_SIZE)
-        struct.pack_into("<I", sec, 0, n)
-        struct.pack_into("<I", sec, 4, n)
-        if comp >= 1:
-            struct.pack_into("<I", sec, 8, bucket_size)
-            struct.pack_into("<I", sec, 12, (n + bucket_size - 1) // bucket_size)
-            struct.pack_into("<f", sec, 16, block_size)
-            struct.pack_into("<H", sec, 20, 12)
-            struct.pack_into("<I", sec, 24, SCALE_RANGE)
-        storage = pfb * 4 + (bucket_count * 12 if comp >= 1 else 0) + n * rec.itemsize
-        struct.pack_into("<I", sec, 28, storage)
-        struct.pack_into("<I", sec, 32, full_buckets)
-        struct.pack_into("<I", sec, 36, pfb)
-        struct.pack_into("<H", sec, 40, sh_degree)
-
-        sf_inv = SCALE_RANGE / (block_size / 2.0)
-        # streamed encode: one reused chunk of records, written as it fills
-        buf = np.zeros(min(STREAM_ROWS, max(n, 1)), rec)
-        with open(path, "wb") as f:
-            f.write(header)
-            f.write(sec)
-            if pfb:
-                f.write(struct.pack("<I", n % bucket_size))
+            sec = bytearray(SECTION_HEADER_SIZE)
+            struct.pack_into("<I", sec, 0, n)
+            struct.pack_into("<I", sec, 4, n)
             if comp >= 1:
-                f.write(to_host(centers).astype("<f4").tobytes())
+                struct.pack_into("<I", sec, 8, bucket_size)
+                struct.pack_into("<I", sec, 12, (n + bucket_size - 1) // bucket_size)
+                struct.pack_into("<f", sec, 16, block_size)
+                struct.pack_into("<H", sec, 20, 12)
+                struct.pack_into("<I", sec, 24, SCALE_RANGE)
+            storage = pfb * 4 + (bucket_count * 12 if comp >= 1 else 0) + n * rec.itemsize
+            struct.pack_into("<I", sec, 28, storage)
+            struct.pack_into("<I", sec, 32, full_buckets)
+            struct.pack_into("<I", sec, 36, pfb)
+            struct.pack_into("<H", sec, 40, sh_degree)
+
+            sf_inv = SCALE_RANGE / (block_size / 2.0)
+            # streamed encode: one reused chunk of records, written as it fills
+            buf = np.zeros(min(STREAM_ROWS, max(n, 1)), rec)
+            center_bytes = to_host(centers).astype("<f4").tobytes() if comp >= 1 else b""
+        with open(path, "wb") as f:
+            with span("file"):
+                f.write(header)
+                f.write(sec)
+                if pfb:
+                    f.write(struct.pack("<I", n % bucket_size))
+                f.write(center_bytes)
             for s in range(0, n, STREAM_ROWS):
                 e = min(s + STREAM_ROWS, n)
-                out = buf[: e - s]
-                for name, field in _encode_rows(c, s, e, comp, centers, bucket_size,
-                                                sf_inv, sh_dim, min_sh, max_sh).items():
-                    if name == "scale" and comp:
-                        field = field.view(np.uint16)
-                    out[name] = field
-                f.write(memoryview(out))
+                with span("encode"):
+                    out = buf[: e - s]
+                    for name, field in _encode_rows(c, s, e, comp, centers, bucket_size,
+                                                    sf_inv, sh_dim, min_sh, max_sh).items():
+                        if name == "scale" and comp:
+                            field = field.view(np.uint16)
+                        out[name] = field
+                with span("file"):
+                    f.write(memoryview(out))
         status_print(f"KSplat (Level {comp}) write completed. {n} points.")

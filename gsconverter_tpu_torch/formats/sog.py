@@ -33,20 +33,19 @@ from __future__ import annotations
 import concurrent.futures as cf
 import io
 import json
-import time
 import zipfile
 
 import numpy as np
 import torch
 
-from .. import config
 from ..cloud import COEFFS_FOR_DEGREE, SplatCloud
 from ..config import resolve_device
 from ..ops import quant
 from ..ops.kmeans import kmeans_chunked
 from ..ops.sh import effective_sh_degree
 from ..parallel.mesh import is_writer
-from ..utils.log import status_print
+from ..utils.log import StageTimer, status_print
+from ..utils.transfer import synchronize, to_host, upload
 from .base import BaseFormat, register
 
 try:
@@ -136,8 +135,8 @@ def _codebook_sample(vals, seed: int) -> np.ndarray:
     if isinstance(vals, torch.Tensor):
         v = vals.reshape(-1)
         if idx is not None:
-            v = v[torch.from_numpy(idx).to(v.device)]
-        return v.to(torch.float32).cpu().numpy()
+            v = v[upload(idx, v.device)]
+        return to_host(v.to(torch.float32))
     v = np.asarray(vals, np.float32).reshape(-1)
     return v if idx is None else v[idx]
 
@@ -312,21 +311,19 @@ class SogFormat(BaseFormat):
             raise ValueError("SOG: cannot write an empty cloud (its textures "
                              "need at least one splat)")
         dev = resolve_device(device) if cloud.is_host else cloud.pos.device
-        t_last = [time.perf_counter()]
+        # the stages ``sog.<tag>``; with --timing each ends in a synchronize
+        # of a tensor cloud's device (its own device time) and prints its line
+        timer = StageTimer()
 
-        def mark(tag):
-            if config.TIMING:
-                if not cloud.is_host and dev.type == "cuda":
-                    torch.cuda.synchronize(dev)  # the stage's own device time
-                now = time.perf_counter()
-                status_print(f"[timing] sog.{tag}: {(now - t_last[0]) * 1e3:.0f} ms")
-                t_last[0] = now
+        def stage(tag):
+            return timer.stage(f"sog.{tag}", digits=0,
+                               sync=None if cloud.is_host else lambda: synchronize(dev))
 
-        width = int(np.ceil(np.sqrt(n) / 4) * 4)
-        height = int(np.ceil(n / width / 4) * 4)
-        npix = width * height
-        sh_bands = effective_sh_degree(cloud, kwargs, 3)
-        mark("detect_bands")
+        with stage("detect_bands"):
+            width = int(np.ceil(np.sqrt(n) / 4) * 4)
+            height = int(np.ceil(n / width / 4) * 4)
+            npix = width * height
+            sh_bands = effective_sh_degree(cloud, kwargs, 3)
 
         # palette sizing first, so the device fit can be dispatched before
         # the host stages and run while they do
@@ -336,57 +333,63 @@ class SogFormat(BaseFormat):
             num_chunks, k_per_chunk = palette_size(n, comp_level)
         encode = self._encode_host if cloud.is_host else self._encode_tensor
         (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
-         op_u8, fit) = encode(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark)
+         op_u8, fit) = encode(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, stage)
         if not is_writer():
             return
 
         with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf, \
                 _ImageBundle(zf, width, height) as bundle:
-            self._write_textures(bundle, npix, n, u16, q_u8, q_alpha, scl_idx,
-                                 dc_idx, op_u8)
-            mark("texture_imgs")
-            shN_meta = None
+            with stage("texture_imgs"):
+                self._write_textures(bundle, npix, n, u16, q_u8, q_alpha, scl_idx,
+                                     dc_idx, op_u8)
+            shN_meta = labels = None
             if sh_bands > 0:
-                shN_meta = self._write_palette(bundle, fit, sh_bands, comp_level, n,
-                                               npix, mark, on_device=not cloud.is_host)
-            meta = {
-                "version": 2,
-                "asset": {"generator": "gsconverter-tpu-sog"},
-                "count": n,
-                "means": {
-                    "mins": [float(x) for x in np.asarray(mins)],
-                    "maxs": [float(x) for x in np.asarray(maxs)],
-                    "files": ["means_l.webp", "means_u.webp"],
-                },
-                "scales": {
-                    "codebook": [float(x) for x in scale_cb],
-                    "files": ["scales.webp"],
-                },
-                "quats": {"files": ["quats.webp"]},
-                "sh0": {
-                    "codebook": [float(x) for x in color_cb],
-                    "files": ["sh0.webp"],
-                },
-            }
-            if shN_meta:
-                meta["shN"] = shN_meta
-            mark("labels+meta")
-            bundle.flush()  # concurrent WebP encodes, then zip entries
-            mark("webp_flush")
+                shN_meta, labels = self._write_palette(
+                    bundle, fit, sh_bands, comp_level, stage, on_device=not cloud.is_host)
+            with stage("labels+meta"):
+                if labels is not None:
+                    labels_img = np.zeros((npix, 4), np.uint8)
+                    labels_img[:n, 0] = (labels & 0xFF).astype(np.uint8)
+                    labels_img[:n, 1] = (labels >> 8).astype(np.uint8)
+                    labels_img[:n, 3] = 255
+                    bundle.add("shN_labels.webp", labels_img)
+                meta = {
+                    "version": 2,
+                    "asset": {"generator": "gsconverter-tpu-sog"},
+                    "count": n,
+                    "means": {
+                        "mins": [float(x) for x in np.asarray(mins)],
+                        "maxs": [float(x) for x in np.asarray(maxs)],
+                        "files": ["means_l.webp", "means_u.webp"],
+                    },
+                    "scales": {
+                        "codebook": [float(x) for x in scale_cb],
+                        "files": ["scales.webp"],
+                    },
+                    "quats": {"files": ["quats.webp"]},
+                    "sh0": {
+                        "codebook": [float(x) for x in color_cb],
+                        "files": ["sh0.webp"],
+                    },
+                }
+                if shN_meta:
+                    meta["shN"] = shN_meta
+            with stage("webp_flush"):
+                bundle.flush()  # concurrent WebP encodes, then zip entries
             zf.writestr(_zentry("meta.json"), json.dumps(meta))
         status_print(f"SOG write completed to {path}. {n} points bundled.")
 
     @staticmethod
-    def _encode_host(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark):
+    def _encode_host(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, stage):
         """Host cloud: numpy encodes on a 2-thread pool, the palette fit
         dispatched on ``dev`` meanwhile."""
         # one serial phase (Morton order, which every later stage consumes),
         # then the [order]-indexed encodes run on a 2-worker pool (numpy
         # releases the GIL) while the main thread quantizes shN, uploads it
         # and dispatches the palette fit
-        pos_c = np.ascontiguousarray(np.asarray(cloud.pos))
-        order_np = morton_order(pos_c)
-        mark("morton_order")
+        with stage("morton_order"):
+            pos_c = np.ascontiguousarray(np.asarray(cloud.pos))
+            order_np = morton_order(pos_c)
 
         def enc_pos():
             p = pos_c[order_np]
@@ -421,74 +424,74 @@ class SogFormat(BaseFormat):
             futs = [pool.submit(f) for f in (enc_pos, enc_quat, enc_scales, enc_sh0)]
             try:
                 if sh_bands > 0:
-                    coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
-                    # degree-packed channel-major [R0..Rp-1, G0.., B0..]
-                    rest_sl = np.asarray(cloud.sh_rest)[:, :, :coeffs0 // 3]
-                    q8, shq_scale, shq_min = shn_u8(rest_sl, n, coeffs0)
-                    q8 = q8[order_np]
-                    mark("shN_quant_u8")
-                    status_print(
-                        f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
-                        f"chunks={num_chunks} (batched K-Means on {dev.type}, "
-                        "overlapped with host stages)")
-                    x_dev = _dequant_u8(torch.from_numpy(q8).to(dev), shq_scale, shq_min)
-                    fit = kmeans_chunked(x_dev, num_chunks, k_per_chunk, max_iter=10,
-                                         seed=100)
-                    mark("shN_fit_dispatch")
-                u16, mins, maxs = futs[0].result()
-                q_u8, q_alpha = futs[1].result()
-                scale_cb, scl_idx = futs[2].result()
-                color_cb, dc_idx, op_u8 = futs[3].result()
+                    with stage("shN_quant_u8"):
+                        coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
+                        # degree-packed channel-major [R0..Rp-1, G0.., B0..]
+                        rest_sl = np.asarray(cloud.sh_rest)[:, :, :coeffs0 // 3]
+                        q8, shq_scale, shq_min = shn_u8(rest_sl, n, coeffs0)
+                        q8 = q8[order_np]
+                    with stage("shN_fit_dispatch"):
+                        status_print(
+                            f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
+                            f"chunks={num_chunks} (batched K-Means on {dev.type}, "
+                            "overlapped with host stages)")
+                        x_dev = _dequant_u8(upload(q8, dev), shq_scale, shq_min)
+                        fit = kmeans_chunked(x_dev, num_chunks, k_per_chunk, max_iter=10,
+                                             seed=100)
+                with stage("encode_threads_join"):
+                    u16, mins, maxs = futs[0].result()
+                    q_u8, q_alpha = futs[1].result()
+                    scale_cb, scl_idx = futs[2].result()
+                    color_cb, dc_idx, op_u8 = futs[3].result()
             except BaseException:
                 for f in futs:
                     f.cancel()
                 raise
-        mark("encode_threads_join")
         return (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
                 op_u8, fit)
 
     @staticmethod
-    def _encode_tensor(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, mark):
+    def _encode_tensor(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, stage):
         """Tensor cloud: every stage on its device, the host branch's
         arithmetic; the textures' bytes, the bounds and the codebook samples
         come to the host."""
-        order = morton_order(cloud.pos.to(torch.float32))
-        mark("morton_order")
-        p = cloud.pos[order]
-        lp = torch.copysign(torch.log1p(p.abs()), p)
-        mins, maxs = torch.aminmax(lp, dim=0)
-        rng = torch.where(maxs - mins > 0, maxs - mins, 1.0)
-        u16 = torch.clamp((lp - mins) / rng * 65535.0, 0, 65535).to(torch.int32)
-        u16 = u16.cpu().numpy().astype(np.uint16)
-        mins, maxs = mins.cpu().numpy(), maxs.cpu().numpy()
-        mark("positions")
-        q_u8, q_alpha = (a.cpu().numpy() for a in quant.pack_rot_sog(cloud.quat[order]))
-        mark("rotations")
-        status_print("Clustering Scales...")
-        status_print("Clustering Colors...")
-        cbs, idxs = [], []
-        for seed, leaf in ((1, cloud.log_scale), (2, cloud.sh_dc)):
-            vals = leaf[order]
-            cb = _fit_scalar_codebook_host(vals, seed=seed)
-            cbs.append(cb)
-            idxs.append(quant.nearest_codebook_index(
-                vals, torch.from_numpy(cb).to(dev)).to(torch.uint8).cpu().numpy())
-        mark("scalar_codebooks")
-        op_u8 = torch.clamp(quant.sigmoid(cloud.opacity[order]) * 255.0, 0, 255)
-        op_u8 = op_u8.to(torch.uint8).cpu().numpy()
+        with stage("morton_order"):
+            order = morton_order(cloud.pos.to(torch.float32))
+        with stage("positions"):
+            p = cloud.pos[order]
+            lp = torch.copysign(torch.log1p(p.abs()), p)
+            mins, maxs = torch.aminmax(lp, dim=0)
+            rng = torch.where(maxs - mins > 0, maxs - mins, 1.0)
+            u16 = torch.clamp((lp - mins) / rng * 65535.0, 0, 65535).to(torch.int32)
+            u16 = to_host(u16).astype(np.uint16)
+            mins, maxs = to_host(mins), to_host(maxs)
+        with stage("rotations"):
+            q_u8, q_alpha = (to_host(a) for a in quant.pack_rot_sog(cloud.quat[order]))
+        with stage("scalar_codebooks"):
+            status_print("Clustering Scales...")
+            status_print("Clustering Colors...")
+            cbs, idxs = [], []
+            for seed, leaf in ((1, cloud.log_scale), (2, cloud.sh_dc)):
+                vals = leaf[order]
+                cb = _fit_scalar_codebook_host(vals, seed=seed)
+                cbs.append(cb)
+                idxs.append(to_host(quant.nearest_codebook_index(
+                    vals, upload(cb, dev)).to(torch.uint8)))
+            op_u8 = torch.clamp(quant.sigmoid(cloud.opacity[order]) * 255.0, 0, 255)
+            op_u8 = to_host(op_u8.to(torch.uint8))
         fit = None
         if sh_bands > 0:
-            coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
-            # degree-packed channel-major [R0..Rp-1, G0.., B0..]
-            q8, shq_scale, shq_min = shn_u8(cloud.sh_rest[:, :, :coeffs0 // 3], n, coeffs0)
-            q8 = q8[order]
-            mark("shN_quant_u8")
-            status_print(
-                f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
-                f"chunks={num_chunks} (batched K-Means on {dev.type})")
-            fit = kmeans_chunked(_dequant_u8(q8, shq_scale, shq_min), num_chunks,
-                                 k_per_chunk, max_iter=10, seed=100)
-            mark("shN_fit_dispatch")
+            with stage("shN_quant_u8"):
+                coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
+                # degree-packed channel-major [R0..Rp-1, G0.., B0..]
+                q8, shq_scale, shq_min = shn_u8(cloud.sh_rest[:, :, :coeffs0 // 3], n, coeffs0)
+                q8 = q8[order]
+            with stage("shN_fit_dispatch"):
+                status_print(
+                    f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
+                    f"chunks={num_chunks} (batched K-Means on {dev.type})")
+                fit = kmeans_chunked(_dequant_u8(q8, shq_scale, shq_min), num_chunks,
+                                     k_per_chunk, max_iter=10, seed=100)
         return (u16, mins, maxs, q_u8, q_alpha, cbs[0], idxs[0], cbs[1], idxs[1],
                 op_u8, fit)
 
@@ -517,54 +520,49 @@ class SogFormat(BaseFormat):
         bundle.add("sh0.webp", sh0_img)
 
     @staticmethod
-    def _write_palette(bundle, fit, sh_bands, comp_level, n, npix, mark,
-                       on_device=False) -> dict:
+    def _write_palette(bundle, fit, sh_bands, comp_level, stage, on_device=False):
+        """The shN centroids' image; returns the palette's meta entry and
+        the splats' palette ids (their image is the writer's)."""
         coeffs = COEFFS_FOR_DEGREE[sh_bands]
         per_color = coeffs // 3
-        status_print(f"SOG Write Quality Level: {comp_level} (0=Max, 9=Min)")
-        # the first wait for the device: the fit was dispatched before the
-        # host stages above
-        c, l = fit
-        if on_device:
-            # the codebook's sample and the lookups where the centroids live
-            centroids = c
-        else:
-            centroids = c.cpu().numpy()
-        mark("shN_fit+centroids_pull")
-        labels = l.cpu().numpy().astype(np.uint16)  # palette ids fit u16
-        mark("shN_labels_pull")
-        count = len(centroids)
+        with stage("shN_fit+centroids_pull"):
+            status_print(f"SOG Write Quality Level: {comp_level} (0=Max, 9=Min)")
+            # the first wait for the device: the fit was dispatched before the
+            # host stages above
+            c, l = fit
+            if on_device:
+                # the codebook's sample and the lookups where the centroids live
+                centroids = c
+            else:
+                centroids = to_host(c)
+        with stage("shN_labels_pull"):
+            labels = to_host(l).astype(np.uint16)  # palette ids fit u16
+        with stage("shN_codebook_imgs"):
+            count = len(centroids)
+            status_print("Clustering SH Centroids into Codebook...")
+            cbN = _fit_scalar_codebook_host(centroids.reshape(-1), seed=3)
+            if on_device:
+                cent_idx = quant.nearest_codebook_index(
+                    centroids.reshape(-1), upload(cbN, c.device))
+                cent_idx = to_host(cent_idx.to(torch.uint8))
+            else:
+                cent_idx = quant.nearest_codebook_index(
+                    centroids.reshape(-1), cbN).astype(np.uint8)
 
-        status_print("Clustering SH Centroids into Codebook...")
-        cbN = _fit_scalar_codebook_host(centroids.reshape(-1), seed=3)
-        if on_device:
-            cent_idx = quant.nearest_codebook_index(
-                centroids.reshape(-1), torch.from_numpy(cbN).to(c.device))
-            cent_idx = cent_idx.to(torch.uint8).cpu().numpy()
-        else:
-            cent_idx = quant.nearest_codebook_index(centroids.reshape(-1), cbN).astype(np.uint8)
-
-        # centroid-index image: [P, coeffs] channel-major -> [P, per_color, 3]
-        # pixels laid out 64 palette entries per row
-        w_c = 64 * coeffs
-        h_c = int(np.ceil(count / 64))
-        cent_img = np.full((w_c * h_c, 4), 255, np.uint8)
-        per_pal = cent_idx.reshape(count, 3, per_color).transpose(0, 2, 1)
-        i = np.arange(count)
-        pix = (i // 64)[:, None] * w_c + ((i % 64) * per_color)[:, None] \
-            + np.arange(per_color)[None, :]
-        cent_img[pix.reshape(-1), :3] = per_pal.reshape(-1, 3)
-        bundle.add("shN_centroids.webp", cent_img, w_c, h_c)
-        mark("shN_codebook_imgs")
-
-        labels_img = np.zeros((npix, 4), np.uint8)
-        labels_img[:n, 0] = (labels & 0xFF).astype(np.uint8)
-        labels_img[:n, 1] = (labels >> 8).astype(np.uint8)
-        labels_img[:n, 3] = 255
-        bundle.add("shN_labels.webp", labels_img)
+            # centroid-index image: [P, coeffs] channel-major -> [P, per_color, 3]
+            # pixels laid out 64 palette entries per row
+            w_c = 64 * coeffs
+            h_c = int(np.ceil(count / 64))
+            cent_img = np.full((w_c * h_c, 4), 255, np.uint8)
+            per_pal = cent_idx.reshape(count, 3, per_color).transpose(0, 2, 1)
+            i = np.arange(count)
+            pix = (i // 64)[:, None] * w_c + ((i % 64) * per_color)[:, None] \
+                + np.arange(per_color)[None, :]
+            cent_img[pix.reshape(-1), :3] = per_pal.reshape(-1, 3)
+            bundle.add("shN_centroids.webp", cent_img, w_c, h_c)
         return {
             "count": int(count),
             "bands": int(sh_bands),
             "codebook": [float(x) for x in cbN],
             "files": ["shN_centroids.webp", "shN_labels.webp"],
-        }
+        }, labels

@@ -9,7 +9,8 @@ live, with a stable sort of the metric; only the packed fields (32 bytes a
 splat) come to the host.  The host's ``np.argsort`` is not stable, so rows
 with tied metrics may take another order there; ``exp`` and ``sigmoid`` may
 differ from numpy's by an ulp, moving a scale by an ulp and an alpha byte
-by one step.
+by one step.  A write is two spans (``utils/log.py``): ``encode`` (the
+records and their readbacks) and ``file``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ..cloud import SplatCloud
 from ..ops import quant, sh
-from ..utils.log import debug_print
+from ..utils.log import debug_print, span
 from ..utils.transfer import to_host
 from .base import BaseFormat, register
 
@@ -82,9 +83,10 @@ class SplatFormat(BaseFormat):
 
     def write(self, cloud: SplatCloud, path: str, **kwargs) -> None:
         n = cloud.n
-        out = np.zeros(n, dtype=_RECORD)
-        for name, field in _encode(cloud).items():
-            out[name] = to_host(field)
-        with open(path, "wb") as f:
+        with span("encode"):
+            out = np.zeros(n, dtype=_RECORD)
+            for name, field in _encode(cloud).items():
+                out[name] = to_host(field)
+        with span("file"), open(path, "wb") as f:
             f.write(memoryview(out))  # zero-copy buffer write
         debug_print(f".splat write completed. {n} splats sorted and packed.")

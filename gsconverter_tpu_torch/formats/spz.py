@@ -18,7 +18,9 @@ does, and gzips with ``mtime=0`` so a rerun writes the same bytes.  Encode
 and decode of a host cloud run in numpy.  A tensor cloud is quantized where
 its tensors live (``ops.quant``'s torch branches, the same arithmetic), and
 only the quantized sections come to the host for the gzip; ``sigmoid`` may
-differ from numpy's by an ulp, moving an alpha byte by one step.
+differ from numpy's by an ulp, moving an alpha byte by one step.  A write
+is three spans (``utils/log.py``): ``encode`` (quantization and the
+readbacks), ``compress`` (the gzip) and ``file``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 from ..cloud import DIM_FOR_DEGREE, SplatCloud
 from ..ops import quant, sh
 from ..ops.sh import effective_sh_degree
-from ..utils.log import debug_print, status_print
+from ..utils.log import debug_print, span, status_print
 from ..utils.transfer import to_host
 from .base import BaseFormat, register
 
@@ -136,29 +138,32 @@ class SpzFormat(BaseFormat):
     def write(self, cloud: SplatCloud, path: str, **kwargs) -> None:
         c = cloud
         n = c.n
-        sh_deg = effective_sh_degree(c, kwargs, self.max_sh_degree)
-        debug_print(f"[DEBUG] SPZ Write: effective SH degree {sh_deg} (from content).")
+        with span("encode"):
+            sh_deg = effective_sh_degree(c, kwargs, self.max_sh_degree)
+            debug_print(f"[DEBUG] SPZ Write: effective SH degree {sh_deg} (from content).")
 
-        # host: numpy; tensors: quantized on their device, then pulled
-        pos_b, alpha, col, scales, rot = _encode_core(
-            c.pos, c.opacity, c.sh_dc, c.log_scale, c.quat)
-        parts = [to_host(pos_b).reshape(n, 9).tobytes(), to_host(alpha).tobytes(),
-                 to_host(col).tobytes(), to_host(scales).tobytes(),
-                 to_host(rot).astype("<u4").tobytes()]
-        sh_dim = DIM_FOR_DEGREE[sh_deg]
-        if sh_dim > 0:
-            # canonical [N,3,15] channel-major -> coeff-major R0,G0,B0,...
-            if c.is_host:
-                inter = np.transpose(c.sh_rest[:, :, :sh_dim], (0, 2, 1))
-            else:
-                inter = c.sh_rest[:, :, :sh_dim].transpose(1, 2)
-            inter = inter.reshape(n, sh_dim * 3)
-            parts.append(np.ascontiguousarray(to_host(_encode_sh(inter, sh_dim))).tobytes())
+            # host: numpy; tensors: quantized on their device, then pulled
+            pos_b, alpha, col, scales, rot = _encode_core(
+                c.pos, c.opacity, c.sh_dc, c.log_scale, c.quat)
+            parts = [to_host(pos_b).reshape(n, 9).tobytes(), to_host(alpha).tobytes(),
+                     to_host(col).tobytes(), to_host(scales).tobytes(),
+                     to_host(rot).astype("<u4").tobytes()]
+            sh_dim = DIM_FOR_DEGREE[sh_deg]
+            if sh_dim > 0:
+                # canonical [N,3,15] channel-major -> coeff-major R0,G0,B0,...
+                if c.is_host:
+                    inter = np.transpose(c.sh_rest[:, :, :sh_dim], (0, 2, 1))
+                else:
+                    inter = c.sh_rest[:, :, :sh_dim].transpose(1, 2)
+                inter = inter.reshape(n, sh_dim * 3)
+                parts.append(np.ascontiguousarray(to_host(_encode_sh(inter, sh_dim))).tobytes())
 
-        header = struct.pack("<IIIBBBB", MAGIC, 3, n, sh_deg, 12, 1, 0)
         comp_level = int(kwargs.get("compression_level", 0) or 0)
-        # mtime=0: the current time would land in the gzip header
-        payload = gzip.compress(header + b"".join(parts), compresslevel=comp_level, mtime=0)
-        with open(path, "wb") as f:
+        with span("compress"):
+            header = struct.pack("<IIIBBBB", MAGIC, 3, n, sh_deg, 12, 1, 0)
+            # mtime=0: the current time would land in the gzip header
+            payload = gzip.compress(header + b"".join(parts), compresslevel=comp_level,
+                                    mtime=0)
+        with span("file"), open(path, "wb") as f:
             f.write(payload)
         status_print(f"Native SPZ (v3, lvl={comp_level}) export completed. {n} points.")

@@ -16,6 +16,7 @@ import torch
 
 from ..cloud import SplatCloud
 from ..utils.log import debug_print, status_print
+from ..utils.transfer import to_host, upload
 from . import density as density_ops
 from . import sor as sor_ops
 
@@ -103,7 +104,7 @@ def remove_flyers(
     pos = cloud.pos
     if cloud.is_host:
         # writable contiguous f32 (leaves may be read-only views of the file)
-        pos = torch.from_numpy(np.require(pos, np.float32, ["C", "W"])).to(device)
+        pos = upload(np.require(pos, np.float32, ["C", "W"]), device)
     mesh = multi_rank_mesh()
     if mesh is not None and cloud.n > mesh.size:
         from ..parallel.distributed import sharded_sor_mask
@@ -113,7 +114,7 @@ def remove_flyers(
     else:
         mask = sor_ops.sor_mask(pos, int(k), float(threshold_factor))
     if cloud.is_host:
-        mask = mask.cpu().numpy()
+        mask = to_host(mask)
     return _apply_mask(cloud, mask, "removing flyers")
 
 
@@ -127,7 +128,7 @@ def auto_bbox(cloud: SplatCloud) -> SplatCloud:
     else:
         # reduced on the device; six floats come back
         mins, maxs = torch.aminmax(cloud.pos, dim=0)
-        mins, maxs = mins.cpu().numpy(), maxs.cpu().numpy()
+        mins, maxs = to_host(mins), to_host(maxs)
     status_print(
         f"Auto-BBox Applied: [{mins[0]:.4f}, {mins[1]:.4f}, {mins[2]:.4f}] "
         f"to [{maxs[0]:.4f}, {maxs[1]:.4f}, {maxs[2]:.4f}]"

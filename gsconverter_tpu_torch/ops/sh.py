@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..cloud import DIM_FOR_DEGREE, SH_C0, SplatCloud
-from ..utils.transfer import is_host as _is_host
+from ..utils.transfer import is_host as _is_host, to_host
 
 # Degree-aware real SH basis constants (standard 3DGS evaluation set).
 SH_C1 = 0.4886025119029199
@@ -57,7 +57,7 @@ def detect_active_degree(cloud: SplatCloud, max_degree: int | None = None) -> in
                     return degree
         return 0
     # tensor leaves: one reduction on their device, 15 flags read back
-    nonzero = (rest != 0).any(dim=0).any(dim=0).cpu().numpy()
+    nonzero = to_host((rest != 0).any(dim=0).any(dim=0))
     active = np.nonzero(nonzero[:DIM_FOR_DEGREE[top]])[0]
     if active.size == 0:
         return 0

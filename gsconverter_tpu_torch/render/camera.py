@@ -3,7 +3,8 @@
 Conventions follow standard 3DGS: world-to-camera extrinsics, +z forward,
 pixel coords with origin at the top-left.  The matrices live as float32
 torch tensors on one device; ``Camera.to`` moves them (the renderer moves a
-camera to its cloud's device).
+camera to its cloud's device; each copy to or from a card is a counted
+wait of ``utils/transfer.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..utils.transfer import upload
 
 
 @dataclasses.dataclass
@@ -76,8 +79,8 @@ class Camera:
         if self.world_to_cam.device == dev:
             return self
         return dataclasses.replace(
-            self, world_to_cam=self.world_to_cam.to(dev), fx=self.fx.to(dev),
-            fy=self.fy.to(dev), cx=self.cx.to(dev), cy=self.cy.to(dev))
+            self, world_to_cam=upload(self.world_to_cam, dev), fx=upload(self.fx, dev),
+            fy=upload(self.fy, dev), cx=upload(self.cx, dev), cy=upload(self.cy, dev))
 
     @property
     def R(self) -> torch.Tensor:

@@ -17,6 +17,15 @@ plain versions ``_composite_fwd_ref`` / ``_composite_bwd_ref``, the JAX
 package's code in torch.  Everything else (projection, SH, binning, the
 window gathers and their scatter-add backward) is torch ops.
 
+Tracing (``utils/log.py``): ``render`` is a span (the root of a frame, or
+inside a training step's) with ``project``, ``sh_color``, ``bin``, one
+``band`` a compositing call (its ``tiles``, ``budget`` = the window a tile
+gets, padded to ``block_m``, and ``slots`` = tiles x budget) and
+``assemble``; under a band ``gather``, ``composite`` and the tile ids' two
+blocking copies (``wait``, ``utils/transfer.py``).  The backward's
+``composite_bwd`` carries its band's counters.  A render counts ``bands``
+(on the card one K5 launch each), ``window_slots`` and the host's waits.
+
 Exit semantics.  The plain path on the CPU runs JAX's chunk-wide early
 exit: the tiles of one ``tile_chunk`` stop together once no pixel of any
 of them has transmittance above ``T_EPS``.  On the card each tile stops on
@@ -36,6 +45,8 @@ import torch
 from ..cloud import SplatCloud
 from ..config import resolve_device
 from ..ops import sh as sh_ops
+from ..utils.log import count, span
+from ..utils.transfer import to_host, upload
 from .camera import Camera
 from .project import project_gaussians
 
@@ -437,14 +448,16 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grgb):
         g_geo, g_alpha, bg, origin, t_starts, t_final, n_done = ctx.saved_tensors
-        grgb = grgb.contiguous()
-        if g_geo.device.type == "cuda":
-            d_geo, d_al, d_bg = _composite_bwd_kernel(ctx.bm, g_geo, g_alpha, origin, bg,
-                                                      t_starts, t_final, n_done, grgb)
-            d_bg = d_bg.sum(0)
-        else:
-            d_geo, d_al, d_bg = _composite_bwd_ref(ctx.bm, g_geo, g_alpha, origin, bg,
-                                                   t_starts, t_final, n_done, grgb)
+        c_sz, m = g_alpha.shape
+        with span("composite_bwd", tiles=c_sz, budget=m, slots=c_sz * m):
+            grgb = grgb.contiguous()
+            if g_geo.device.type == "cuda":
+                d_geo, d_al, d_bg = _composite_bwd_kernel(ctx.bm, g_geo, g_alpha, origin, bg,
+                                                          t_starts, t_final, n_done, grgb)
+                d_bg = d_bg.sum(0)
+            else:
+                d_geo, d_al, d_bg = _composite_bwd_ref(ctx.bm, g_geo, g_alpha, origin, bg,
+                                                       t_starts, t_final, n_done, grgb)
         return d_geo, d_al, d_bg, None, None, None, None
 
 
@@ -474,9 +487,8 @@ def _leaves_on(cloud: SplatCloud, dev: torch.device) -> SplatCloud:
     autograd history)."""
 
     def conv(a):
-        if isinstance(a, torch.Tensor):
-            return a.to(dev)
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+        return upload(a if isinstance(a, torch.Tensor)
+                      else np.ascontiguousarray(a, dtype=np.float32), dev)
 
     return cloud.replace(**{k: conv(getattr(cloud, k)) for k in
                             ("pos", "sh_dc", "sh_rest", "opacity", "log_scale", "quat")})
@@ -491,8 +503,7 @@ def _launch_groups(n_tiles, tile_chunk, on_card, windowed, max_per_tile, n,
     ``tile_chunk`` groups to bound its [tiles, N] selection.  ``span``
     (t0, t1) takes tiles [t0, t1) only (no band plan)."""
     if band_plan is not None:
-        order = (tile_order.cpu().numpy() if isinstance(tile_order, torch.Tensor)
-                 else np.asarray(tile_order)).astype(np.int64)
+        order = to_host(tile_order).astype(np.int64)
         bands, off = [], 0
         for nc, mb in band_plan:
             bands.append((order[off:off + nc * tile_chunk], min(int(mb), n)))
@@ -575,109 +586,121 @@ def render(
     backward), with ``1 <= block_m <= 64``; on the CPU ``tile_chunk`` tiles
     at a time with JAX's chunk-wide early exit.
     """
-    if binning not in ("windowed", "exact"):
-        raise ValueError(f"binning must be 'windowed' or 'exact', got {binning!r}")
-    if band_plan is not None and (binning != "windowed" or tile_order is None):
-        raise ValueError("band_plan requires windowed binning + tile_order")
-    if rows is not None and band_plan is not None:
-        raise ValueError("rows and band_plan do not combine")
-    dev = _render_device(cloud, device)
-    cl = _leaves_on(cloud, dev)
-    cam = cam.to(dev)
-    h, w = cam.height, cam.width
-    if h % TILE or w % TILE:
-        raise ValueError("image dims must be multiples of 16")
-    tw, th = w // TILE, h // TILE
-    n_tiles = tw * th
-    r0, r1 = (0, h) if rows is None else (int(rows[0]), int(rows[1]))
-    if r0 % TILE or r1 % TILE or not 0 <= r0 < r1 <= h:
-        raise ValueError(f"rows must be multiples of {TILE} within [0, {h}], got {rows}")
-    span = (r0 // TILE * tw, r1 // TILE * tw)
-    n = cl.pos.shape[0]
-    max_per_tile = min(max_per_tile, n)
-    bg = (torch.zeros(3, device=dev) if bg is None
-          else torch.as_tensor(bg, dtype=torch.float32, device=dev))
-    on_card = dev.type == "cuda"
+    with span("render"):
+        if binning not in ("windowed", "exact"):
+            raise ValueError(f"binning must be 'windowed' or 'exact', got {binning!r}")
+        if band_plan is not None and (binning != "windowed" or tile_order is None):
+            raise ValueError("band_plan requires windowed binning + tile_order")
+        if rows is not None and band_plan is not None:
+            raise ValueError("rows and band_plan do not combine")
+        dev = _render_device(cloud, device)
+        cl = _leaves_on(cloud, dev)
+        cam = cam.to(dev)
+        h, w = cam.height, cam.width
+        if h % TILE or w % TILE:
+            raise ValueError("image dims must be multiples of 16")
+        tw, th = w // TILE, h // TILE
+        n_tiles = tw * th
+        r0, r1 = (0, h) if rows is None else (int(rows[0]), int(rows[1]))
+        if r0 % TILE or r1 % TILE or not 0 <= r0 < r1 <= h:
+            raise ValueError(f"rows must be multiples of {TILE} within [0, {h}], got {rows}")
+        tiles_span = (r0 // TILE * tw, r1 // TILE * tw)
+        n = cl.pos.shape[0]
+        max_per_tile = min(max_per_tile, n)
+        bg = (torch.zeros(3, device=dev) if bg is None
+              else upload(torch.as_tensor(bg, dtype=torch.float32), dev))
+        on_card = dev.type == "cuda"
 
-    proj = project_gaussians(cl.pos, cl.log_scale, cl.quat, cam)
-    color = sh_ops.eval_sh(
-        cl, proj["view_dir"], cl.active_sh_degree if sh_degree is None else sh_degree,
-    ).clamp_min(0.0)  # [N,3] linear
-    alpha = torch.sigmoid(cl.opacity)
-    depth_key = torch.where(proj["in_front"], proj["depth"], torch.inf).detach()
-    means2d, conic, radius = proj["means2d"], proj["conic"], proj["radius"].detach()
-    valid = proj["in_front"]
-    if binning == "windowed":
-        # depth rides as the second part of the sort key: per-tile runs come
-        # out front to back without reordering the attribute arrays
-        sorted_tid, entry_splat = _bin_windowed(
-            means2d.detach(), radius, valid, depth_key, max_global, max_mid, tw, th)
-    else:
-        # exact oracle path: selection by index needs depth-sorted arrays
-        order = torch.argsort(depth_key, stable=True)
-        means2d, conic, radius = means2d[order], conic[order], radius[order]
-        valid, color, alpha = valid[order], color[order], alpha[order]
-        m2 = means2d.detach()
-        lo_x, hi_x = m2[:, 0] - radius, m2[:, 0] + radius
-        lo_y, hi_y = m2[:, 1] - radius, m2[:, 1] + radius
-        neg_idx = -torch.arange(n, device=dev, dtype=torch.float32)
+        with span("project"):
+            proj = project_gaussians(cl.pos, cl.log_scale, cl.quat, cam)
+        with span("sh_color"):
+            color = sh_ops.eval_sh(
+                cl, proj["view_dir"], cl.active_sh_degree if sh_degree is None else sh_degree,
+            ).clamp_min(0.0)  # [N,3] linear
+            alpha = torch.sigmoid(cl.opacity)
+        with span("bin"):
+            depth_key = torch.where(proj["in_front"], proj["depth"], torch.inf).detach()
+            means2d, conic, radius = proj["means2d"], proj["conic"], proj["radius"].detach()
+            valid = proj["in_front"]
+            if binning == "windowed":
+                # depth rides as the second part of the sort key: per-tile runs
+                # come out front to back without reordering the attribute arrays
+                sorted_tid, entry_splat = _bin_windowed(
+                    means2d.detach(), radius, valid, depth_key, max_global, max_mid, tw, th)
+            else:
+                # exact oracle path: selection by index needs depth-sorted arrays
+                order = torch.argsort(depth_key, stable=True)
+                means2d, conic, radius = means2d[order], conic[order], radius[order]
+                valid, color, alpha = valid[order], color[order], alpha[order]
+                m2 = means2d.detach()
+                lo_x, hi_x = m2[:, 0] - radius, m2[:, 0] + radius
+                lo_y, hi_y = m2[:, 1] - radius, m2[:, 1] + radius
+                neg_idx = -torch.arange(n, device=dev, dtype=torch.float32)
 
-    tix = torch.arange(n_tiles, device=dev)
-    x0 = ((tix % tw) * TILE).float()
-    y0 = ((tix // tw) * TILE).float()
-    # one row gather for geometry + color; alpha a separate column, so a
-    # loss differentiated w.r.t. opacity alone scatters one column
-    packed = torch.cat([means2d, conic, color], dim=1)  # [N, 8]
+            tix = torch.arange(n_tiles, device=dev)
+            x0 = ((tix % tw) * TILE).float()
+            y0 = ((tix // tw) * TILE).float()
+            # one row gather for geometry + color; alpha a separate column, so a
+            # loss differentiated w.r.t. opacity alone scatters one column
+            packed = torch.cat([means2d, conic, color], dim=1)  # [N, 8]
 
-    def select(tile_idx, budget):
-        if binning == "windowed":
-            start = torch.searchsorted(sorted_tid, tile_idx, right=False)
-            end = torch.searchsorted(sorted_tid, tile_idx, right=True)
-            idx = start[:, None] + torch.arange(budget, device=dev)[None, :]
-            w_valid = idx < end[:, None]
-            idx = idx.clamp(0, sorted_tid.shape[0] - 1)
-            ids = torch.where(w_valid, entry_splat[idx], n)
-            counts = torch.clamp(end - start, max=budget)
-            return ids.clamp(0, n - 1), ids < n, counts
-        tx0, ty0 = x0[tile_idx], y0[tile_idx]
-        overlap = ((hi_x[None, :] >= tx0[:, None]) & (lo_x[None, :] <= tx0[:, None] + TILE)
-                   & (hi_y[None, :] >= ty0[:, None]) & (lo_y[None, :] <= ty0[:, None] + TILE)
-                   & valid[None, :])  # [C, N]
-        # first max_per_tile in depth order: score = -index where overlapping
-        score = torch.where(overlap, neg_idx[None, :], -torch.inf)
-        sel = torch.topk(score, max_per_tile, dim=1).indices  # ascending depth
-        sel_valid = torch.gather(overlap, 1, sel)
-        return sel, sel_valid, sel_valid.sum(1)
+        def select(tile_idx, budget):
+            if binning == "windowed":
+                start = torch.searchsorted(sorted_tid, tile_idx, right=False)
+                end = torch.searchsorted(sorted_tid, tile_idx, right=True)
+                idx = start[:, None] + torch.arange(budget, device=dev)[None, :]
+                w_valid = idx < end[:, None]
+                idx = idx.clamp(0, sorted_tid.shape[0] - 1)
+                ids = torch.where(w_valid, entry_splat[idx], n)
+                counts = torch.clamp(end - start, max=budget)
+                return ids.clamp(0, n - 1), ids < n, counts
+            tx0, ty0 = x0[tile_idx], y0[tile_idx]
+            overlap = ((hi_x[None, :] >= tx0[:, None]) & (lo_x[None, :] <= tx0[:, None] + TILE)
+                       & (hi_y[None, :] >= ty0[:, None]) & (lo_y[None, :] <= ty0[:, None] + TILE)
+                       & valid[None, :])  # [C, N]
+            # first max_per_tile in depth order: score = -index where overlapping
+            score = torch.where(overlap, neg_idx[None, :], -torch.inf)
+            sel = torch.topk(score, max_per_tile, dim=1).indices  # ascending depth
+            sel_valid = torch.gather(overlap, 1, sel)
+            return sel, sel_valid, sel_valid.sum(1)
 
-    def bin_and_render(tile_idx, budget):
-        sel, sel_valid, counts = select(tile_idx, budget)
-        pad = -sel.shape[1] % block_m
-        if pad:
-            sel = torch.nn.functional.pad(sel, (0, pad))
-            sel_valid = torch.nn.functional.pad(sel_valid, (0, pad))
-        # index_select: its backward is index_add_ (one atomic add an
-        # entry), where packed[sel]'s index_put_ sorts every index first
-        flat = sel.reshape(-1)
-        g_geo = packed.index_select(0, flat).view(*sel.shape, GEO)  # [C, M', 8]
-        g_alpha = torch.where(sel_valid, alpha.index_select(0, flat).view(sel.shape), 0.0)
-        origin = torch.stack([x0[tile_idx], y0[tile_idx]], dim=1)
-        rgb = _composite(block_m, g_geo, g_alpha, origin, counts.to(torch.int32), bg,
-                         per_tile=on_card)
-        return rgb.reshape(-1, TILE, TILE, 3)
+        def bin_and_render(tile_idx, budget):
+            with span("gather"):
+                sel, sel_valid, counts = select(tile_idx, budget)
+                pad = -sel.shape[1] % block_m
+                if pad:
+                    sel = torch.nn.functional.pad(sel, (0, pad))
+                    sel_valid = torch.nn.functional.pad(sel_valid, (0, pad))
+                # index_select: its backward is index_add_ (one atomic add an
+                # entry), where packed[sel]'s index_put_ sorts every index first
+                flat = sel.reshape(-1)
+                g_geo = packed.index_select(0, flat).view(*sel.shape, GEO)  # [C, M', 8]
+                g_alpha = torch.where(sel_valid, alpha.index_select(0, flat).view(sel.shape), 0.0)
+                origin = torch.stack([x0[tile_idx], y0[tile_idx]], dim=1)
+            with span("composite"):
+                rgb = _composite(block_m, g_geo, g_alpha, origin, counts.to(torch.int32), bg,
+                                 per_tile=on_card)
+            return rgb.reshape(-1, TILE, TILE, 3)
 
-    out_ids, tiles = [], []
-    for ids_out, ids_render, budget in _launch_groups(
-            n_tiles, tile_chunk, on_card, binning == "windowed", max_per_tile, n,
-            tile_order, band_plan, span):
-        if len(ids_render):
-            tiles.append(bin_and_render(torch.from_numpy(ids_render).to(dev), budget))
-            out_ids.append(torch.from_numpy(ids_out).to(dev))
-    out = torch.zeros(n_tiles + 1, TILE, TILE, 3, dtype=torch.float32, device=dev)
-    # pad entries (id == n_tiles) land in the dropped extra row
-    out = out.index_put((torch.cat(out_ids),), torch.cat(tiles))
-    band_th = (r1 - r0) // TILE
-    img = out[span[0]:span[1]].reshape(band_th, tw, TILE, TILE, 3).permute(0, 2, 1, 3, 4)
-    return img.reshape(r1 - r0, w, 3)
+        out_ids, tiles = [], []
+        for ids_out, ids_render, budget in _launch_groups(
+                n_tiles, tile_chunk, on_card, binning == "windowed", max_per_tile, n,
+                tile_order, band_plan, tiles_span):
+            if len(ids_render):
+                # each tile's window: ``budget`` slots padded to whole blocks
+                window = budget + -budget % block_m
+                slots = len(ids_render) * window
+                count(bands=1, window_slots=slots)
+                with span("band", tiles=len(ids_render), budget=window, slots=slots):
+                    tiles.append(bin_and_render(upload(ids_render, dev), budget))
+                    out_ids.append(upload(ids_out, dev))
+        with span("assemble"):
+            out = torch.zeros(n_tiles + 1, TILE, TILE, 3, dtype=torch.float32, device=dev)
+            # pad entries (id == n_tiles) land in the dropped extra row
+            out = out.index_put((torch.cat(out_ids),), torch.cat(tiles))
+            band_th = (r1 - r0) // TILE
+            img = out[tiles_span[0]:tiles_span[1]].reshape(band_th, tw, TILE, TILE, 3)
+            return img.permute(0, 2, 1, 3, 4).reshape(r1 - r0, w, 3)
 
 
 # ------------------------------------------------------- budget planning
@@ -789,8 +812,8 @@ def auto_budget(cloud: SplatCloud, cam: Camera, cap: int = 1024,
     counts, n_big, k_sat = _tile_occupancy(
         cl.pos, cl.log_scale, cl.quat, cl.opacity, cam.to(dev),
         saturation=saturation, max_mid=max_mid)
-    counts = counts.cpu().numpy()
-    k_sat = k_sat.cpu().numpy()
+    counts = to_host(counts)
+    k_sat = to_host(k_sat)
     n_big = int(n_big)
     g = 32
     while g < n_big and g < glob_cap:

@@ -2,7 +2,10 @@
 
 The training-step counterpart of the differentiable rasterizer: Adam on
 every splat parameter through ``render``'s analytic compositing backward
-(K6 on the card), quaternions renormalized after each step.
+(K6 on the card), quaternions renormalized after each step.  A step is the
+span ``train_step`` (``utils/log.py``) with ``render``, ``loss``,
+``backward`` and ``optimizer`` (``zero_grad``, ``opt.step`` and the
+renormalization) under it.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from ..cloud import SplatCloud
+from ..utils.log import span
 from .camera import Camera
 from .rasterizer import _leaves_on, _render_device, render
 
@@ -34,16 +38,21 @@ def make_train_step(cloud: SplatCloud, cam: Camera, opt: torch.optim.Optimizer,
     a step each parameter's ``.grad`` holds that step's gradient."""
 
     def step(target: torch.Tensor) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
-        img = render(cloud_with(cloud, params), cam, **render_kw)
-        loss = torch.mean((img - target) ** 2)
-        loss.backward()
-        opt.step()
-        with torch.no_grad():
-            # keep quaternions normalized after the update
-            q = params["quat"]
-            q.div_(torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-8))
-        return loss.detach()
+        with span("train_step"):
+            with span("optimizer"):
+                opt.zero_grad(set_to_none=True)
+            img = render(cloud_with(cloud, params), cam, **render_kw)
+            with span("loss"):
+                loss = torch.mean((img - target) ** 2)
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                opt.step()
+                with torch.no_grad():
+                    # keep quaternions normalized after the update
+                    q = params["quat"]
+                    q.div_(torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-8))
+            return loss.detach()
 
     return step
 
