@@ -14,19 +14,36 @@ Quantization contract (``ops.quant`` and here):
   - SH u8 around 128 with 5-bit (degree-1 block) / 4-bit (higher) snapping.
 
 The writer emits version 3 with flags=1 (FlagAntialiased), as the reference
-does, and gzips with ``mtime=0`` so a rerun writes the same bytes.  Encode
-and decode of a host cloud run in numpy.  A tensor cloud is quantized where
-its tensors live (``ops.quant``'s torch branches, the same arithmetic), and
-only the quantized sections come to the host for the gzip; ``sigmoid`` may
-differ from numpy's by an ulp, moving an alpha byte by one step.  A write
-is three spans (``utils/log.py``): ``encode`` (quantization and the
+does.  Encode and decode of a host cloud run in numpy.  A tensor cloud is
+quantized where its tensors live (``ops.quant``'s torch branches, the same
+arithmetic), and only the quantized sections come to the host for the gzip;
+``sigmoid`` may differ from numpy's by an ulp, moving an alpha byte by one
+step.  A write is three spans (``utils/log.py``): ``encode`` (quantization and the
 readbacks), ``compress`` (the gzip) and ``file``.
+
+The gzip is one member with ``mtime=0``.  A payload (header and sections)
+longer than ``CHUNK`` is deflated in parallel on the host's cores, as pigz
+does: each ``CHUNK`` of it is a raw deflate at the writer's level, primed
+with the 32 KiB of payload before it as its dictionary and ended by a sync
+flush (the last by the stream's end), so the pieces join into one deflate
+stream that any gzip reader inflates to the payload; the CRC-32 runs beside
+them.  Only the block boundaries differ from one serial deflate (the sizes
+lie within a fraction of a percent).  The chunk size is fixed, so the bytes
+depend only on the payload and the level: a rerun, or a host with another
+number of cores, writes the same file.  Level 0 (stored blocks) and a
+payload of one chunk or less take ``gzip.compress`` itself, byte for byte.
+The ``compress`` span counts ``deflate_chunks`` (0 on that serial path) and
+``deflate_workers`` (the pool's size; 1 there, the writer's own thread).
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 import struct
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -34,12 +51,66 @@ import torch
 from ..cloud import DIM_FOR_DEGREE, SplatCloud
 from ..ops import quant, sh
 from ..ops.sh import effective_sh_degree
-from ..utils.log import debug_print, span, status_print
+from ..utils.log import count, debug_print, span, status_print
 from ..utils.transfer import to_host
 from .base import BaseFormat, register
 
 MAGIC = 0x5053474E
 COLOR_SCALE = 0.15
+#: payload bytes a parallel deflate chunk takes
+CHUNK = 256 << 10
+#: the deflate window: the payload a chunk takes as its dictionary
+_WINDOW = 32 << 10
+
+# the deflate pool: made on first use, remade in a new process (its threads
+# do not survive a fork) or for another size; submissions hold the lock
+_POOL = None
+_POOL_KEY = None
+_POOL_LOCK = threading.Lock()
+
+
+def _pool(workers: int) -> ThreadPoolExecutor:
+    global _POOL, _POOL_KEY
+    key = (os.getpid(), workers)
+    if _POOL_KEY != key:
+        if _POOL is not None and _POOL_KEY[0] == key[0]:
+            _POOL.shutdown(wait=False)  # its queued chunks still run
+        _POOL, _POOL_KEY = ThreadPoolExecutor(workers, "spz-deflate"), key
+    return _POOL
+
+
+def _deflate_chunk(data: memoryview, start: int, level: int) -> bytes:
+    """Raw deflate of ``data[start:start + CHUNK]``, primed with the window
+    before it, ended by a sync flush (by the stream's end on the last)."""
+    end = start + CHUNK
+    co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, zlib.Z_DEFAULT_STRATEGY,
+                          **({"zdict": data[start - _WINDOW:start]} if start else {}))
+    last = end >= len(data)
+    return co.compress(data[start:end]) + co.flush(zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
+
+
+def _gzip(data: bytes, level: int, workers: int | None = None) -> bytes:
+    """One gzip member of ``data`` at ``level`` with ``mtime=0``: deflated in
+    ``CHUNK`` pieces on a pool of ``workers`` threads (by default one a core,
+    at most one a chunk) above one chunk at a level above 0, else
+    ``gzip.compress``'s own bytes."""
+    n_chunks = -(-len(data) // CHUNK)
+    if level == 0 or n_chunks <= 1:
+        count(deflate_chunks=0, deflate_workers=1)
+        return gzip.compress(data, compresslevel=level, mtime=0)
+    if workers is None:
+        workers = min(len(os.sched_getaffinity(0)), n_chunks)
+    view = memoryview(data)
+    with _POOL_LOCK:
+        pool = _pool(workers)
+        crc = pool.submit(zlib.crc32, view)
+        parts = [pool.submit(_deflate_chunk, view, s, level)
+                 for s in range(0, len(data), CHUNK)]
+    count(deflate_chunks=n_chunks, deflate_workers=workers)
+    # the header zlib writes for this level (its XFL and OS bytes vary by build)
+    head = gzip.compress(b"", compresslevel=level, mtime=0)[:10]
+    tail = struct.pack("<II", crc.result(), len(data) & 0xFFFFFFFF)
+    return b"".join([head, *(p.result() for p in parts), tail])
 
 
 def _encode_core(pos, opacity, sh_dc, log_scale, quat):
@@ -161,9 +232,7 @@ class SpzFormat(BaseFormat):
         comp_level = int(kwargs.get("compression_level", 0) or 0)
         with span("compress"):
             header = struct.pack("<IIIBBBB", MAGIC, 3, n, sh_deg, 12, 1, 0)
-            # mtime=0: the current time would land in the gzip header
-            payload = gzip.compress(header + b"".join(parts), compresslevel=comp_level,
-                                    mtime=0)
+            payload = _gzip(b"".join([header, *parts]), comp_level)
         with span("file"), open(path, "wb") as f:
             f.write(payload)
         status_print(f"Native SPZ (v3, lvl={comp_level}) export completed. {n} points.")

@@ -9,6 +9,7 @@ The module imports neither JAX nor the JAX package:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tracing.py
 """
 
+import gzip
 import json
 import sys
 import types
@@ -420,6 +421,25 @@ def test_writers_split_into_encode_compress_and_file(tmp_path, fresh, fmt, spans
     assert root.name == "export"
     (write,) = [s for s in spans if s.name == "write"]
     assert [s.name for s in _children(spans, write)] == spans_of
+
+
+@pytest.mark.parametrize("n", [600, 20_000])
+def test_the_spz_compress_span_counts_its_deflate_chunks(tmp_path, fresh, n):
+    """A payload above one chunk deflates in ceil(payload / CHUNK) chunks on
+    the pool; one chunk or less takes the serial gzip (0 chunks)."""
+    from gsconverter_tpu_torch.formats import spz
+
+    config.TIMING = True
+    path = str(tmp_path / "out.spz")
+    Converter("", path, "spz", device="cpu").write_processed(_scene(n=n),
+                                                             compression_level=1)
+    with open(path, "rb") as f:
+        payload = len(gzip.decompress(f.read()))
+    (compress,) = [s for s in log.spans() if s.name == "compress"]
+    chunks = -(-payload // spz.CHUNK)
+    assert compress.counts["deflate_chunks"] == (chunks if chunks > 1 else 0)
+    assert compress.counts["deflate_workers"] >= 1
+    assert (n > 10_000) == (chunks > 1)
 
 
 # ------------------------------------------------------------------ card
