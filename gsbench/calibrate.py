@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fault", help="plant this fault of gsbench/faults.py first")
+    ap.add_argument("--fault", help="plant this fault of gsbench/faults/<kind>.py first")
     ap.add_argument("--control", type=int, choices=(0, 1), default=1,
                     help="also read the control (0: the program's numbers alone)")
     args = ap.parse_args(argv)

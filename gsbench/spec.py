@@ -6,8 +6,14 @@ The configuration is the JSON file its ``configs`` entry gives; the mix is
 drives the port (``gsbench/traffic/<kind>.py``).  The limits of the numbers
 that decide ``correct`` were read for one cell and belong to it:
 ``gsbench/limits/<cell>.json``.  A per-layer metric is read by
-``gsbench/metrics/<name>.py``.  Everything is found by name, so a
-later cell, configuration or metric is a matter of adding files.
+``gsbench/metrics/<name>.py``, and the faults a kind of traffic can have
+are planted by ``gsbench/faults/<kind>.py``.  Everything is found by name,
+so a later cell, configuration, kind of traffic or metric is a matter of
+adding files.
+
+A configuration or a mix may carry a ``tiny`` object: what the CPU tests
+size down (``gsbench/tiny.py``).  ``cell`` drops it, so a run never reads
+it.
 """
 
 from __future__ import annotations
@@ -61,13 +67,26 @@ def reports(metric: dict, cell: str, e2e_names: set[str] | None = None) -> bool:
     return e2e_names is None or metric["moves"] in e2e_names
 
 
+def config_file(bench: dict, config: str, root: Path = ROOT) -> Path:
+    return root / _by_name(bench["configs"], config, "config")["file"]
+
+
+def traffic_file(traffic: str, root: Path = ROOT) -> Path:
+    return root / "gsbench" / "traffic" / f"{traffic}.json"
+
+
+def read_sized(path: Path) -> tuple[dict, dict]:
+    """A configuration or mix as a run reads it, and its ``tiny`` object
+    (empty where it has none)."""
+    with open(path) as f:
+        data = json.load(f)
+    return data, data.pop("tiny", {})
+
+
 def cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
     w = _by_name(bench["workloads"], name, "workload")
-    cfg_entry = _by_name(bench["configs"], w["config"], "config")
-    with open(root / cfg_entry["file"]) as f:
-        cfg = json.load(f)
-    with open(root / "gsbench" / "traffic" / f"{w['traffic']}.json") as f:
-        mix = json.load(f)
+    cfg, _ = read_sized(config_file(bench, w["config"], root))
+    mix, _ = read_sized(traffic_file(w["traffic"], root))
     with open(root / "gsbench" / "limits" / f"{name}.json") as f:
         rules = json.load(f)
     limits = rules.pop("limits")
@@ -80,7 +99,7 @@ def cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
                 per_layer=per_layer)
 
 
-def _module(path: Path, label: str) -> ModuleType:
+def load_module(path: Path, label: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(label, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -89,14 +108,14 @@ def _module(path: Path, label: str) -> ModuleType:
 
 def traffic_loop(kind: str, root: Path = ROOT) -> ModuleType:
     """``gsbench/traffic/<kind>.py``: the loop of one kind of traffic."""
-    return _module(root / "gsbench" / "traffic" / f"{kind}.py", f"gsbench_traffic_{kind}")
+    return load_module(root / "gsbench" / "traffic" / f"{kind}.py", f"gsbench_traffic_{kind}")
 
 
 def metric_reader(name: str, root: Path = ROOT) -> ModuleType:
     """``gsbench/metrics/<name>.py``: its ``read(trace)`` returns the value
     or None where the trace holds nothing to read."""
-    return _module(root / "gsbench" / "metrics" / f"{name}.py",
-                   "gsbench_metric_" + name.replace(".", "_").replace("-", "_"))
+    return load_module(root / "gsbench" / "metrics" / f"{name}.py",
+                       "gsbench_metric_" + name.replace(".", "_").replace("-", "_"))
 
 
 def check_names(bench: dict) -> list[str]:

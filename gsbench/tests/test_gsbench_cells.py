@@ -1,57 +1,34 @@
-"""Whole runs of each cell at a tiny size on the CPU: the harness's look
+"""Whole runs of each cell at its tiny size on the CPU: the harness's look
 for a card skipped, the rest of a run driven.  A sound run is correct; the
-control (the reference in bfloat16 in the program's place) and each fault
-planted under the timed path are not."""
+control (the reference in bfloat16 in the program's place) is not.  The
+faults planted under the timed path are ``test_gsbench_faults.py``'s.
+
+The check that a run loads neither JAX nor the JAX package runs in a child
+process, so it holds whatever the test process itself imported (the
+repository's ``tests/conftest.py`` imports JAX)."""
 
 import json
 import os
 import subprocess
 import sys
-import time
 
 import pytest
 import torch
 
-from gsbench import faults, spec
-from gsbench.run import execute
-
-CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
-
-
-def _run(cell, tmp_path, on_checked=None, seed=2**31 + 7):
-    return execute(cell, seed, 0.5, False, "cpu", tmp_path, time.perf_counter(),
-                   on_checked=on_checked)
-
-
-def _over(numbers, limits):
-    return [k for k, v in numbers.items() if not v <= limits[k]]
+from gsbench import spec
+from gsbench.tests.cases import CELLS, over, run
+from gsbench.tiny import tiny_cell
 
 
 @pytest.mark.parametrize("name", CELLS)
-def test_sound_run_is_correct_and_its_control_is_not(name, tiny, tmp_path):
-    cell = tiny(name)
+def test_sound_run_is_correct_and_its_control_is_not(name, tmp_path):
+    cell = tiny_cell(name)
     control = {}
-    out = _run(cell, tmp_path, lambda loop: control.update(loop.control()))
+    out = run(cell, tmp_path, lambda loop: control.update(loop.control()))
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 1 and out["failed"] == 0
     assert set(out["metrics"]) == {m["name"] for m in cell.end_to_end}
-    assert _over(control, cell.limits), control
-
-
-CASES = [(name, fault) for name in CELLS
-         for fault in faults.FAULTS[spec.cell(spec.load_benchmark(), name).traffic["kind"]]]
-
-
-@pytest.mark.parametrize("name,fault", CASES)
-def test_a_fault_under_the_timed_path_is_not_correct(name, fault, tiny, tmp_path, monkeypatch):
-    cell = tiny(name)
-    faults.plant(cell, fault, monkeypatch.setattr)
-    out = _run(cell, tmp_path)
-    assert not out["correct"], out["checks"]
-    if fault.startswith("late_"):
-        # the checked steps pass: the window's recorded step is what fails
-        over = [c["name"] for c in out["checks"] if not c["value"] <= c["limit"]]
-        assert over and all(n.startswith("window_") for n in over), out["checks"]
+    assert over(control, cell.limits), control
 
 
 def _child(code):
@@ -71,8 +48,9 @@ def test_a_run_without_a_card_prints_no_result():
 def test_a_run_loads_neither_jax_nor_the_jax_package(name):
     code = f"""
 import json, sys, time, tempfile, pathlib
-sys.path.insert(0, "gsbench/tests")
-from conftest import tiny_cell
+import torch
+torch.set_num_threads(2)
+from gsbench.tiny import tiny_cell
 from gsbench.run import execute, forbidden_modules
 with tempfile.TemporaryDirectory() as d:
     out = execute(tiny_cell({name!r}), 3, 0.2, False, "cpu", pathlib.Path(d), time.perf_counter())

@@ -1,7 +1,8 @@
 """The reference's work counts against brute force, its imports, and the
-roofline readers on a made-up trace."""
+roofline and its readers on made-up traces."""
 
 import ast
+import itertools
 import math
 import subprocess
 import sys
@@ -143,6 +144,52 @@ def test_roofline_readers_count_and_refuse_mismatched_launches():
     assert gaps["aten::add"] == pytest.approx(1e-4) and len(gaps) == 2
     tr.launches["composite_fwd"] = 3  # the profiler dropped a launch
     assert trace.roofline_share(tr, "composite_fwd_kernel", "composite_fwd", "k5") is None
+
+
+def _roofline_s_before(ops, nbytes):
+    """The roofline before it counted tensor-core work."""
+    return max(ops / 33.5e12, nbytes / 3.35e12)
+
+
+GRID = [0.0, 1.0, 3.3e5, 7.7e9, 2.1e12, 5.0e15]
+
+
+def test_roofline_without_tensor_core_work_is_the_formula_before():
+    for ops, nbytes in itertools.product(GRID, GRID):
+        assert trace.roofline_s(ops, nbytes) == _roofline_s_before(ops, nbytes)
+        assert trace.roofline_s(ops, nbytes, 0.0) == _roofline_s_before(ops, nbytes)
+
+
+def test_the_tensor_core_term_wins_only_where_it_is_largest():
+    assert trace.BF16_TC_FLOP_PER_S == 989e12
+    for ops, nbytes, tc in itertools.product(GRID, GRID, GRID):
+        before, tc_s = _roofline_s_before(ops, nbytes), tc / 989e12
+        assert trace.roofline_s(ops, nbytes, tc) == (tc_s if tc_s > before else before)
+
+
+# each roofline reader of the cells: (its kernel, the port's counter,
+# its work entry)
+READERS = {"k1_roofline.convert": ("sor_window_md_kernel", "k1", "k1"),
+           "k5_roofline.train": ("composite_fwd_kernel", "composite_fwd", "k5"),
+           "k6_roofline.train": ("composite_bwd_kernel", "composite_bwd", "k6"),
+           "k5_roofline.frame": ("composite_fwd_kernel", "composite_fwd", "k5")}
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+@pytest.mark.parametrize("ops,nbytes", [(2.3e9, 1.1e7), (4.0e6, 9.6e8)])
+def test_roofline_readers_read_what_they_read_before(name, ops, nbytes):
+    """On a made-up trace, bound by the operations and by the bytes: the
+    share of the formula before, to the last bit."""
+    function, counter, key = READERS[name]
+    tr = trace.Trace(iterations=3, window_s=0.05,
+                     device=[(f"void (anonymous namespace)::{function}<32, 256>(float const*)",
+                              100.0, 400.0),
+                             ("void at::elementwise_kernel<1>()", 600.0, 100.0),
+                             (f"void (anonymous namespace)::{function}<32, 256>(float const*)",
+                              900.0, 700.0)],
+                     host=[], launches={counter: 2}, work={key: {"ops": ops, "bytes": nbytes}})
+    got = spec.metric_reader(name).read(tr)
+    assert got == 100.0 * _roofline_s_before(ops, nbytes) / ((400.0 + 700.0) * 1e-6)
 
 
 def _imports(path):

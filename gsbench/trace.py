@@ -21,9 +21,11 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): FP32 outside
 # the tensor cores at 67 TFLOP/s counts a fused multiply-add as two
 # operations, so single FP32 instructions run at half that; HBM3 at
-# 3.35 TB/s.
+# 3.35 TB/s; bf16 on the tensor cores at 989 TFLOP/s (a multiply-add two
+# operations).
 FP32_INSTR_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOP_PER_S = 989e12
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GAP_SAMPLE_US = 200.0
@@ -94,22 +96,24 @@ class Trace:
         return {"device_ops": by(ops), "idle_gaps": by(gaps)}
 
 
-def roofline_s(ops: float, nbytes: float) -> float:
-    """Least time on the card for ``ops`` FP32 instructions and ``nbytes``
-    of HBM traffic."""
-    return max(ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S)
+def roofline_s(ops: float, nbytes: float, tc_flops: float = 0.0) -> float:
+    """Least time on the card for ``ops`` FP32 instructions, ``nbytes`` of
+    HBM traffic and ``tc_flops`` bf16 tensor-core operations."""
+    return max(ops / FP32_INSTR_PER_S, nbytes / HBM_BYTES_PER_S, tc_flops / BF16_TC_FLOP_PER_S)
 
 
 def roofline_share(tr: Trace, function: str, counter: str, work: str):
     """The least time the work ``tr.work[work]`` needs on the card over the
     device time of ``function``'s kernels, in %; None where the profiler's
     launches of it differ from the port's counter ``counter`` (a dropped
-    event would read high) or nothing was counted."""
+    event would read high) or nothing was counted.  A work entry holds
+    ``ops`` and ``bytes``, and ``tc_flops`` where the kernel's products
+    run on the tensor cores."""
     secs, count = tr.kernel(function)
     if count == 0 or count != tr.launches.get(counter) or work not in tr.work:
         return None
     w = tr.work[work]
-    return 100.0 * roofline_s(w["ops"], w["bytes"]) / secs
+    return 100.0 * roofline_s(w["ops"], w["bytes"], w.get("tc_flops", 0.0)) / secs
 
 
 def stage_ms(tr: Trace, names) -> float | None:
