@@ -108,6 +108,7 @@ class Converter:
         self.processed_cloud: SplatCloud | None = None  # pre-RGB, post-filter
         self.source_format: str | None = None
         self.source_handler: BaseFormat | None = None
+        self.target_handler: BaseFormat | None = None  # the last write's
         self.timer = StageTimer()
 
     # ------------------------------------------------------------------ load
@@ -342,7 +343,7 @@ class Converter:
                 "(use --extra_elements to preserve)."
             )
 
-        target_handler = get_handler(self.target_format)
+        self.target_handler = target_handler = get_handler(self.target_format)
         # the pipeline already scanned content for the SH degree and synced
         # the metadata; the hint lets codecs skip their own full re-scan
         write_kwargs.setdefault("sh_content_degree", cloud.active_sh_degree)

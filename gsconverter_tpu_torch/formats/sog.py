@@ -13,19 +13,22 @@ package writes it:
     256 codebook, 64-wide centroid index image + u16 label image; meta.json
     version 2.
 
-A host cloud's textures and scalar codebooks are encoded in numpy on host
-threads, while the shN palette is fitted by ``ops.kmeans.kmeans_chunked`` on
-the writer's ``device`` (kernel K2 on the card); the fit is only waited for
-when its centroids are pulled.  A tensor cloud keeps the host branch's
-semantics and runs its stages where its tensors live: the Morton order, the
-u16 positions, rotations, opacity, the shN u8 pre-quantization and its
-dequantization, the palette fit and the nearest-codebook lookups.  Its
-256-entry codebooks are fitted on the host as the host branch fits them,
-from the same numpy-drawn subsample gathered on the device.  (The JAX
-package's device branch differs: it fits the palette on raw f32 values and
-the codebooks by device K-Means.)  ``log1p``, ``exp`` and the square root of
-the rotation norm may differ from numpy's by an ulp, moving a texel by one
-step.  An empty cloud raises ``ValueError``: a texture needs a pixel.
+Both residencies run the exact stages on a device, the writer's ``device``
+for a host cloud (one ``upload`` stage copies its fields there) and the
+tensors' own for a tensor cloud: the Morton order and the gathers by it,
+the shN u8 pre-quantization and its dequantization, the palette fit
+(``ops.kmeans.kmeans_chunked``, kernel K2 on the card, waited for only after
+the host stages) and the nearest-codebook lookups.  Their 256-entry
+codebooks are fitted on the host from a numpy-drawn subsample gathered
+where the values live.  A host cloud's positions, rotations and opacity
+come back gathered and are encoded in numpy on host threads; a tensor
+cloud encodes them on its device.  (The JAX package's device
+branch differs: it fits the palette on raw f32 values and the codebooks by
+device K-Means.)  ``log1p``, ``exp`` and the square root of the rotation
+norm may differ from numpy's by an ulp, moving a texel by one step, so a
+host cloud's file is byte for byte the numpy encode's, a tensor cloud's
+within those steps of it.  An empty cloud raises ``ValueError``: a
+texture needs a pixel.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from ..ops import quant
 from ..ops.kmeans import kmeans_chunked
 from ..ops.sh import effective_sh_degree
 from ..parallel.mesh import is_writer
-from ..utils.log import StageTimer, status_print
-from ..utils.transfer import synchronize, to_host, upload
+from ..utils.log import StageTimer, count, status_print
+from ..utils.transfer import synchronize, to_host, upload, upload_fields
 from .base import BaseFormat, register
 
 try:
@@ -227,6 +230,32 @@ def _shn_u8_torch(rest_sl: torch.Tensor, n: int, coeffs: int):
     return q8, shq_scale, shq_min
 
 
+def _codebook_indices(vals: torch.Tensor, seed: int, dev):
+    """(the 256-entry codebook of ``vals``, each value's nearest entry as
+    host u8): the codebook fitted on the host from its sample, the lookups
+    where ``vals`` lives."""
+    cb = _fit_scalar_codebook_host(vals, seed=seed)
+    idx = quant.nearest_codebook_index(vals, upload(cb, dev))
+    return cb, to_host(idx.to(torch.uint8))
+
+
+def _dispatch_palette(rest_sl: torch.Tensor, order: torch.Tensor, n: int, coeffs: int,
+                      num_chunks: int, k_per_chunk: int, dev, stage):
+    """The stages ``shN_quant_u8`` and ``shN_fit_dispatch``: the shN u8
+    pre-quantization of ``rest_sl`` [n, 3, coeffs // 3] in the splats'
+    ``order``, dequantized, and the palette fit dispatched on its device
+    (not waited for)."""
+    with stage("shN_quant_u8"):
+        q8, shq_scale, shq_min = shn_u8(rest_sl, n, coeffs)
+        q8 = q8[order]
+    with stage("shN_fit_dispatch"):
+        status_print(
+            f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
+            f"chunks={num_chunks} (batched K-Means on {dev.type})")
+        return kmeans_chunked(_dequant_u8(q8, shq_scale, shq_min), num_chunks, k_per_chunk,
+                              max_iter=10, seed=100)
+
+
 @register
 class SogFormat(BaseFormat):
     name = "sog"
@@ -311,9 +340,10 @@ class SogFormat(BaseFormat):
             raise ValueError("SOG: cannot write an empty cloud (its textures "
                              "need at least one splat)")
         dev = resolve_device(device) if cloud.is_host else cloud.pos.device
-        # the stages ``sog.<tag>``; with --timing each ends in a synchronize
-        # of a tensor cloud's device (its own device time) and prints its line
-        timer = StageTimer()
+        # the stages ``sog.<tag>``, kept on the handler as ``timer``; with
+        # --timing each ends in a synchronize of a tensor cloud's device (its
+        # own device time) and prints its line
+        self.timer = timer = StageTimer()
 
         def stage(tag):
             return timer.stage(f"sog.{tag}", digits=0,
@@ -344,8 +374,7 @@ class SogFormat(BaseFormat):
                                      dc_idx, op_u8)
             shN_meta = labels = None
             if sh_bands > 0:
-                shN_meta, labels = self._write_palette(
-                    bundle, fit, sh_bands, comp_level, stage, on_device=not cloud.is_host)
+                shN_meta, labels = self._write_palette(bundle, fit, sh_bands, comp_level, stage)
             with stage("labels+meta"):
                 if labels is not None:
                     labels_img = np.zeros((npix, 4), np.uint8)
@@ -381,18 +410,34 @@ class SogFormat(BaseFormat):
 
     @staticmethod
     def _encode_host(cloud, n, sh_bands, num_chunks, k_per_chunk, dev, stage):
-        """Host cloud: numpy encodes on a 2-thread pool, the palette fit
-        dispatched on ``dev`` meanwhile."""
-        # one serial phase (Morton order, which every later stage consumes),
-        # then the [order]-indexed encodes run on a 2-worker pool (numpy
-        # releases the GIL) while the main thread quantizes shN, uploads it
-        # and dispatches the palette fit
+        """Host cloud: its fields go to ``dev`` once, and there the Morton
+        order, the gathers by it, the shN u8 pre-quantization, the palette
+        fit and the scale and sh0 codebook lookups run.  The positions,
+        rotations and opacity, whose torch twins may differ from numpy by an
+        ulp, come back gathered and are encoded in numpy on a 2-thread host
+        pool."""
+        coeffs0 = COEFFS_FOR_DEGREE[sh_bands] if sh_bands > 0 else 0
+        with stage("upload"):
+            fields = {"pos": cloud.pos, "log_scale": cloud.log_scale, "sh_dc": cloud.sh_dc,
+                      "quat": cloud.quat, "opacity": cloud.opacity}
+            if sh_bands > 0:
+                # degree-packed channel-major [R0..Rp-1, G0.., B0..]
+                fields["rest"] = np.asarray(cloud.sh_rest)[:, :, :coeffs0 // 3]
+            on_dev = upload_fields(fields, dev)
+            copied = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                      for t in on_dev.values()}
+            count(upload_bytes=sum(copied.values()))
         with stage("morton_order"):
-            pos_c = np.ascontiguousarray(np.asarray(cloud.pos))
-            order_np = morton_order(pos_c)
+            order = morton_order(on_dev["pos"])
 
+        def gathered(name, rows=slice(None)):
+            return to_host(on_dev[name][order[rows]])
+
+        # the numpy encodes run on a 2-worker pool (numpy releases the GIL),
+        # and so do the codebook fits from their samples, while the main
+        # thread quantizes shN and dispatches the palette fit
         def enc_pos():
-            p = pos_c[order_np]
+            p = gathered("pos")
             lp = np.copysign(np.log1p(np.abs(p)), p)
             mins = lp.min(axis=0)
             maxs = lp.max(axis=0)
@@ -400,49 +445,36 @@ class SogFormat(BaseFormat):
             u16 = np.clip((lp - mins) / rng * 65535.0, 0, 65535).astype(np.uint16)
             return u16, mins, maxs
 
-        def enc_quat():
-            return quant.pack_rot_sog(np.ascontiguousarray(np.asarray(cloud.quat))[order_np])
+        def enc_quat(rows):
+            return quant.pack_rot_sog(gathered("quat", rows))
 
         def enc_scales():
-            scl = np.ascontiguousarray(np.asarray(cloud.log_scale))[order_np]
-            cb = _fit_scalar_codebook_host(scl, seed=1)
-            return cb, quant.nearest_codebook_index(scl, cb).astype(np.uint8)
+            return _codebook_indices(on_dev["log_scale"][order], 1, dev)
 
         def enc_sh0():
-            dc = np.ascontiguousarray(np.asarray(cloud.sh_dc))[order_np]
-            cb = _fit_scalar_codebook_host(dc, seed=2)
-            idx = quant.nearest_codebook_index(dc, cb).astype(np.uint8)
-            op = np.clip(quant.sigmoid(
-                np.ascontiguousarray(np.asarray(cloud.opacity))[order_np]
-            ) * 255.0, 0, 255).astype(np.uint8)
+            cb, idx = _codebook_indices(on_dev["sh_dc"][order], 2, dev)
+            op = np.clip(quant.sigmoid(gathered("opacity")) * 255.0, 0, 255).astype(np.uint8)
             return cb, idx, op
 
         status_print("Clustering Scales...")
         status_print("Clustering Colors...")
         fit = None
+        # the rotations, the longest encode, in two halves of the rows (each
+        # row's bytes are its own), one on each worker first
+        half = n // 2
         with cf.ThreadPoolExecutor(2) as pool:
-            futs = [pool.submit(f) for f in (enc_pos, enc_quat, enc_scales, enc_sh0)]
+            futs = [pool.submit(enc_quat, slice(0, half)), pool.submit(enc_quat, slice(half, n))]
+            futs += [pool.submit(f) for f in (enc_pos, enc_scales, enc_sh0)]
             try:
                 if sh_bands > 0:
-                    with stage("shN_quant_u8"):
-                        coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
-                        # degree-packed channel-major [R0..Rp-1, G0.., B0..]
-                        rest_sl = np.asarray(cloud.sh_rest)[:, :, :coeffs0 // 3]
-                        q8, shq_scale, shq_min = shn_u8(rest_sl, n, coeffs0)
-                        q8 = q8[order_np]
-                    with stage("shN_fit_dispatch"):
-                        status_print(
-                            f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
-                            f"chunks={num_chunks} (batched K-Means on {dev.type}, "
-                            "overlapped with host stages)")
-                        x_dev = _dequant_u8(upload(q8, dev), shq_scale, shq_min)
-                        fit = kmeans_chunked(x_dev, num_chunks, k_per_chunk, max_iter=10,
-                                             seed=100)
+                    fit = _dispatch_palette(on_dev["rest"], order, n, coeffs0, num_chunks,
+                                            k_per_chunk, dev, stage)
                 with stage("encode_threads_join"):
-                    u16, mins, maxs = futs[0].result()
-                    q_u8, q_alpha = futs[1].result()
-                    scale_cb, scl_idx = futs[2].result()
-                    color_cb, dc_idx, op_u8 = futs[3].result()
+                    q_u8, q_alpha = (np.concatenate(a) for a in zip(futs[0].result(),
+                                                                   futs[1].result()))
+                    u16, mins, maxs = futs[2].result()
+                    scale_cb, scl_idx = futs[3].result()
+                    color_cb, dc_idx, op_u8 = futs[4].result()
             except BaseException:
                 for f in futs:
                     f.cancel()
@@ -470,29 +502,17 @@ class SogFormat(BaseFormat):
         with stage("scalar_codebooks"):
             status_print("Clustering Scales...")
             status_print("Clustering Colors...")
-            cbs, idxs = [], []
-            for seed, leaf in ((1, cloud.log_scale), (2, cloud.sh_dc)):
-                vals = leaf[order]
-                cb = _fit_scalar_codebook_host(vals, seed=seed)
-                cbs.append(cb)
-                idxs.append(to_host(quant.nearest_codebook_index(
-                    vals, upload(cb, dev)).to(torch.uint8)))
+            scale_cb, scl_idx = _codebook_indices(cloud.log_scale[order], 1, dev)
+            color_cb, dc_idx = _codebook_indices(cloud.sh_dc[order], 2, dev)
             op_u8 = torch.clamp(quant.sigmoid(cloud.opacity[order]) * 255.0, 0, 255)
             op_u8 = to_host(op_u8.to(torch.uint8))
         fit = None
         if sh_bands > 0:
-            with stage("shN_quant_u8"):
-                coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
-                # degree-packed channel-major [R0..Rp-1, G0.., B0..]
-                q8, shq_scale, shq_min = shn_u8(cloud.sh_rest[:, :, :coeffs0 // 3], n, coeffs0)
-                q8 = q8[order]
-            with stage("shN_fit_dispatch"):
-                status_print(
-                    f"SH Clustering: K={num_chunks * k_per_chunk}, Points={n}, "
-                    f"chunks={num_chunks} (batched K-Means on {dev.type})")
-                fit = kmeans_chunked(_dequant_u8(q8, shq_scale, shq_min), num_chunks,
-                                     k_per_chunk, max_iter=10, seed=100)
-        return (u16, mins, maxs, q_u8, q_alpha, cbs[0], idxs[0], cbs[1], idxs[1],
+            coeffs0 = COEFFS_FOR_DEGREE[sh_bands]
+            # degree-packed channel-major [R0..Rp-1, G0.., B0..]
+            fit = _dispatch_palette(cloud.sh_rest[:, :, :coeffs0 // 3], order, n, coeffs0,
+                                    num_chunks, k_per_chunk, dev, stage)
+        return (u16, mins, maxs, q_u8, q_alpha, scale_cb, scl_idx, color_cb, dc_idx,
                 op_u8, fit)
 
     @staticmethod
@@ -520,34 +540,24 @@ class SogFormat(BaseFormat):
         bundle.add("sh0.webp", sh0_img)
 
     @staticmethod
-    def _write_palette(bundle, fit, sh_bands, comp_level, stage, on_device=False):
-        """The shN centroids' image; returns the palette's meta entry and
-        the splats' palette ids (their image is the writer's)."""
+    def _write_palette(bundle, fit, sh_bands, comp_level, stage):
+        """The shN centroids' image (their codebook's sample and lookups
+        where the fit left them); returns the palette's meta entry and the
+        splats' palette ids (their image is the writer's)."""
         coeffs = COEFFS_FOR_DEGREE[sh_bands]
         per_color = coeffs // 3
         with stage("shN_fit+centroids_pull"):
             status_print(f"SOG Write Quality Level: {comp_level} (0=Max, 9=Min)")
             # the first wait for the device: the fit was dispatched before the
             # host stages above
-            c, l = fit
-            if on_device:
-                # the codebook's sample and the lookups where the centroids live
-                centroids = c
-            else:
-                centroids = to_host(c)
+            centroids, l = fit
+            synchronize(centroids.device)
         with stage("shN_labels_pull"):
             labels = to_host(l).astype(np.uint16)  # palette ids fit u16
         with stage("shN_codebook_imgs"):
             count = len(centroids)
             status_print("Clustering SH Centroids into Codebook...")
-            cbN = _fit_scalar_codebook_host(centroids.reshape(-1), seed=3)
-            if on_device:
-                cent_idx = quant.nearest_codebook_index(
-                    centroids.reshape(-1), upload(cbN, c.device))
-                cent_idx = to_host(cent_idx.to(torch.uint8))
-            else:
-                cent_idx = quant.nearest_codebook_index(
-                    centroids.reshape(-1), cbN).astype(np.uint8)
+            cbN, cent_idx = _codebook_indices(centroids.reshape(-1), 3, centroids.device)
 
             # centroid-index image: [P, coeffs] channel-major -> [P, per_color, 3]
             # pixels laid out 64 palette entries per row

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils.log import span
 from .padding import PAD_POS, next_pow2, pad_rows
 
 MAX_D = 2048  # widest rows the kernels take (csrc/kmeans.cu kMaxD)
@@ -709,7 +710,10 @@ def kmeans_chunked(data, num_chunks: int, k_per_chunk: int, max_iter: int = 10,
                    seed: int = 0, precision: str = "bf16", device=None):
     """Locality-chunked K-Means (the SOG shN palette, reference sog.py:526-549):
     equal chunks of consecutive rows, each fitting its own k-means++-seeded
-    codebook, every Lloyd step of all chunks in one K2 launch.
+    codebook, every Lloyd step of all chunks in one K2 launch (``max_iter``
+    steps, then one more for the final labels).  The dispatch is the span
+    ``palette_fit`` with the counters ``chunks``, ``k_per_chunk`` and
+    ``lloyd_steps`` (``max_iter``).
 
     Chunks hold next_pow2(ceil(N / num_chunks), floor=max(256, k)) rows; the
     real rows fill the leading chunks and PAD_POS rows the rest, so trailing
@@ -724,21 +728,22 @@ def kmeans_chunked(data, num_chunks: int, k_per_chunk: int, max_iter: int = 10,
     k = int(k_per_chunk)
     chunk = next_pow2(-(-n // num_chunks), floor=max(256, k))
     xp = pad_rows(x, chunk * num_chunks, PAD_POS)
-    mesh = _dispatch_mesh(chunk * num_chunks, chunks=num_chunks)
-    if mesh is not None:
-        from ..parallel.distributed import sharded_kmeans_chunked
+    with span("palette_fit", chunks=int(num_chunks), k_per_chunk=k, lloyd_steps=int(max_iter)):
+        mesh = _dispatch_mesh(chunk * num_chunks, chunks=num_chunks)
+        if mesh is not None:
+            from ..parallel.distributed import sharded_kmeans_chunked
 
-        c, labels = sharded_kmeans_chunked(xp, n, num_chunks, k, int(max_iter), seed,
-                                           mesh, precision=precision)
-        return c, labels[:n]
-    xc = xp.reshape(num_chunks, chunk, d).contiguous()
-    first = torch.arange(num_chunks, device=x.device) * chunk
-    nv = torch.clamp(n - first, 0, chunk).to(torch.int32)
-    valid = torch.arange(chunk, device=x.device)[None, :] < nv[:, None]
-    init = init_centroids(xc, k, seed, valid=valid)
-    c, labels = _fit(xc, nv, init, int(max_iter), precision)
-    offs = (torch.arange(num_chunks, device=x.device, dtype=torch.int32) * k)[:, None]
-    return c.reshape(num_chunks * k, d), (labels + offs).reshape(-1)[:n]
+            c, labels = sharded_kmeans_chunked(xp, n, num_chunks, k, int(max_iter), seed,
+                                               mesh, precision=precision)
+            return c, labels[:n]
+        xc = xp.reshape(num_chunks, chunk, d).contiguous()
+        first = torch.arange(num_chunks, device=x.device) * chunk
+        nv = torch.clamp(n - first, 0, chunk).to(torch.int32)
+        valid = torch.arange(chunk, device=x.device)[None, :] < nv[:, None]
+        init = init_centroids(xc, k, seed, valid=valid)
+        c, labels = _fit(xc, nv, init, int(max_iter), precision)
+        offs = (torch.arange(num_chunks, device=x.device, dtype=torch.int32) * k)[:, None]
+        return c.reshape(num_chunks * k, d), (labels + offs).reshape(-1)[:n]
 
 
 def _dispatch_mesh(n_rows: int, chunks: int | None = None):

@@ -16,6 +16,8 @@ costs the two flag checks of ``log.span`` and ``log.count``.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -71,6 +73,49 @@ def upload(arr, device) -> torch.Tensor:
     with log.span("wait"):
         log.count(host_waits=1, wait_bytes=t.numel() * t.element_size())
         return t.to(device)
+
+
+def _record_buffer(a: np.ndarray):
+    """The array of records that the strided float32 view ``a`` [n, ...]
+    walks, one record a row (a PLY read's leaves view its vertex array so),
+    or None."""
+    if a.dtype != np.float32 or a.ndim < 2 or a.flags.c_contiguous or a.strides[0] <= 0:
+        return None
+    b = a
+    while isinstance(b.base, np.ndarray):
+        b = b.base
+        if (b.ndim == 1 and len(b) == len(a) and b.itemsize == a.strides[0]
+                and b.itemsize % 4 == 0 and b.flags.c_contiguous):
+            return b
+    return None
+
+
+def upload_fields(fields: dict, device) -> dict:
+    """Each host array of ``fields`` as a tensor on ``device``, each byte
+    copied once.  Strided float32 views of one buffer of records (the
+    leaves of a PLY read) go over as that buffer's one contiguous block,
+    from which each is taken on ``device`` with its own offset and strides;
+    any other array goes over as a contiguous copy of itself."""
+    out, blocks = {}, {}
+    for name, a in fields.items():
+        a = np.asarray(a)
+        rec = _record_buffer(a)
+        if rec is None or any(st <= 0 or st % 4 for st in a.strides[1:]):
+            out[name] = upload(np.ascontiguousarray(a), device)
+            continue
+        blocks.setdefault(id(rec), (rec, []))[1].append((name, a))
+    for rec, views in blocks.values():
+        words = rec.view(np.uint8).reshape(len(rec), rec.itemsize).view(np.float32)
+        with warnings.catch_warnings():
+            # a read-only (mapped) buffer: its tensor is only read
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            block = upload(words, device)
+        start = rec.__array_interface__["data"][0]
+        for name, a in views:
+            out[name] = torch.as_strided(
+                block, a.shape, (block.stride(0),) + tuple(st // 4 for st in a.strides[1:]),
+                (a.__array_interface__["data"][0] - start) // 4)
+    return out
 
 
 def synchronize(device) -> None:

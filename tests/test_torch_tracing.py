@@ -389,13 +389,13 @@ def test_timing_prints_the_stage_and_sog_lines(tmp_path, capsys, fresh):
     src = str(tmp_path / "scene.ply")
     get_handler("3dgs").write(_scene(n=2048, sh_degree=2), src)
     conv = Converter(src, str(tmp_path / "out.sog"), "sog", device="cpu")
-    conv.run(min_opacity=1, timing=True, compression_level=9)
+    conv.run(min_opacity=1, timing=True, compression_level=1)
     out = capsys.readouterr().out
     stages = [line.split(":")[0][len("[timing] "):] for line in out.splitlines()
               if line.startswith("[timing] ")]
     sog = [s for s in stages if s.startswith("sog.")]
     assert sog == ["sog." + t for t in (
-        "detect_bands", "morton_order", "shN_quant_u8", "shN_fit_dispatch",
+        "detect_bands", "upload", "morton_order", "shN_quant_u8", "shN_fit_dispatch",
         "encode_threads_join", "texture_imgs", "shN_fit+centroids_pull", "shN_labels_pull",
         "shN_codebook_imgs", "labels+meta", "webp_flush")]
     plain = [s for s in stages if not s.startswith("sog.")]
@@ -407,6 +407,12 @@ def test_timing_prints_the_stage_and_sog_lines(tmp_path, capsys, fresh):
     assert root.name == "convert" and not root.profiled
     (write,) = [s for s in spans if s.name == "write"]
     assert sorted(s.name for s in spans if s.parent == write.id) == sorted(sog)
+    # the palette fit, inside its dispatch stage: level 1's 2 chunks of 1024
+    # centroids at 2,048 splats, 10 Lloyd steps
+    (fit,) = [s for s in spans if s.name == "palette_fit"]
+    (dispatch,) = [s for s in spans if s.name == "sog.shN_fit_dispatch"]
+    assert fit.parent == dispatch.id
+    assert fit.counts == {"chunks": 2, "k_per_chunk": 1024, "lloyd_steps": 10}
 
 
 @pytest.mark.parametrize("fmt,spans_of", [
